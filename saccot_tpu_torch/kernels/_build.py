@@ -1,0 +1,135 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+All `.cu` files under `saccot_tpu_torch/csrc/` are compiled by one
+`nvcc -shared` call into a shared library with a plain C interface, loaded
+with `ctypes`. The build happens at first use (never at import), into
+`build/saccot_tpu_torch/` at the repository root, under a name that carries
+a hash of the sources, so an edited source triggers a rebuild and an
+unchanged one is reused.
+
+Every entry point returns `cudaGetLastError()` right after its launch;
+`check` raises on a non-zero code. `LAUNCHES` holds one plain integer per
+kernel (two for the anchor kernel: its candidate and top-T modes), which a
+wrapper bumps exactly where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "saccot_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+LAUNCHES: Dict[str, int] = {
+    "compat_degrees": 0,
+    "anchor_topb": 0,             # neighbours only
+    "anchor_topb_candidates": 0,  # + all B(B-1)/2 candidate scores
+    "anchor_topb_topt": 0,        # + per-anchor top-T candidates
+    "solve3": 0,
+    "score": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _P],
+    "saccot_anchor_topb": [_P] * 10 + [_I] * 7 + [_F, _F, _F, _P],
+    "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
+    "saccot_score": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+build_log: str = ""
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(Path(on_path))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError("nvcc not found in $CUDA_HOME/bin, PATH or /usr/local/cuda/bin")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet."""
+    global build_seconds, build_log
+    out = BUILD_DIR / f"libsaccot_kernels_{source_hash()}.so"
+    if out.exists():
+        build_seconds = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    (BUILD_DIR / "build.log").write_text(build_log)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)

@@ -1,0 +1,72 @@
+"""Batched 3-point rigid solves: CUDA kernel wrapper and its plain version.
+
+Replaces `saccot_tpu/kernels/solve3.py::_solve_kernel` — and the Horn
+iteration and rotation assembly the TPU ran in XLA after it — with
+`csrc/solve3.cu`. Output is the SoA layout the scoring kernel reads:
+rotations `r9 [batch, 9, K]` (row-major entries), translations
+`t3 [batch, 3, K]`. The direct-index loads cover any N.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from saccot_tpu_torch.engine.svd3 import (
+    quaternion_from_cross_covariance,
+    rotation_entries_from_quaternion,
+)
+from saccot_tpu_torch.kernels import _build
+from saccot_tpu_torch.kernels._common import f32_points, index_tensor, ptr, stream_of
+
+
+def solve3_reference(
+    P: torch.Tensor, Q: torch.Tensor, triples: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version, in the kernel's order of operations.
+
+    P, Q [batch, N, 3]; triples [batch, K, 3] int64 -> r9, t3.
+    """
+    batch, K, _ = triples.shape
+    flat = triples.reshape(batch, K * 3, 1).expand(batch, K * 3, 3)
+    p = torch.gather(P, 1, flat).reshape(batch, K, 3, 3)    # [batch, K, slot, xyz]
+    q = torch.gather(Q, 1, flat).reshape(batch, K, 3, 3)
+    third = 1.0 / 3.0
+    pbar = (p[:, :, 0] + p[:, :, 1] + p[:, :, 2]) * third    # [batch, K, 3]
+    qbar = (q[:, :, 0] + q[:, :, 1] + q[:, :, 2]) * third
+    pc = p - pbar[:, :, None]
+    qc = q - qbar[:, :, None]
+    H = [pc[:, :, 0, a] * qc[:, :, 0, c] + pc[:, :, 1, a] * qc[:, :, 1, c]
+         + pc[:, :, 2, a] * qc[:, :, 2, c] for a in range(3) for c in range(3)]
+    r = rotation_entries_from_quaternion(*quaternion_from_cross_covariance(*H))
+    r9 = torch.stack(r, dim=1)                                 # [batch, 9, K]
+    t3 = torch.stack(
+        [qbar[..., c] - (r[3 * c] * pbar[..., 0] + r[3 * c + 1] * pbar[..., 1]
+                         + r[3 * c + 2] * pbar[..., 2]) for c in range(3)],
+        dim=1,
+    )                                                          # [batch, 3, K]
+    return r9, t3
+
+
+def solve3(
+    P: torch.Tensor, Q: torch.Tensor, triples: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rigid transform of each triple: (P, Q [batch, N, 3], triples
+    [batch, K, 3] int64) -> (r9 [batch, 9, K], t3 [batch, 3, K])."""
+    if not P.is_cuda:
+        return solve3_reference(P, Q, triples)
+    batch, N, _ = P.shape
+    K = triples.shape[1]
+    P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
+    triples = index_tensor(triples, (batch, K, 3), "triples")
+    r9 = torch.empty((batch, 9, K), dtype=torch.float32, device=P.device)
+    t3 = torch.empty((batch, 3, K), dtype=torch.float32, device=P.device)
+    if batch == 0 or K == 0:
+        return r9, t3
+    lib = _build.library()
+    rc = lib.saccot_solve3(ptr(P), ptr(Q), ptr(triples), ptr(r9), ptr(t3),
+                           batch, N, K, stream_of(r9))
+    _build.check(rc, "solve3")
+    _build.LAUNCHES["solve3"] += 1
+    return r9, t3
