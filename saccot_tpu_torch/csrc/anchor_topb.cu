@@ -10,7 +10,8 @@
 //      -inf knockout, which is lax.top_k's order;
 //   3. (modes 1 and 2) loads the B selected neighbours' coordinates by direct
 //      index (the TPU kernel used a one-hot matmul to avoid gathers), scores
-//      the B x B pair grid, and either
+//      the B x B pair grid (common.cuh, shared with candidate_topt.cu), and
+//      either
 //        mode 1: writes the B(B-1)/2 candidate scores in np.triu_indices order,
 //        mode 2: runs T argmax rounds over the grid (score desc, pair id asc),
 //                writing max(score, -1) and the decoded neighbour node ids.
@@ -103,53 +104,14 @@ anchor_topb_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     }
     __syncthreads();
 
-    // The B x B pair grid: valid upper-triangle entries hold
-    // (s_ab1 + s_ab2) + s_b1b2, everything else -1.
+    // The B x B pair grid (common.cuh), then mode 1 is done; mode 2 runs the
+    // T argmax rounds over it.
     float* cand_row = cand + ab * cand_cols;
-    for (int pid = threadIdx.x; pid < B * B; pid += kThreads) {
-        const int b1 = pid / B;
-        const int b2 = pid - b1 * B;
-        float v = -1.0f;
-        if (b1 < b2) {
-            const float dp = saccot::dist3(sp[b1][0], sp[b1][1], sp[b1][2],
-                                           sp[b2][0], sp[b2][1], sp[b2][2]);
-            const float dq = saccot::dist3(sq[b1][0], sq[b1][1], sq[b1][2],
-                                           sq[b2][0], sq[b2][1], sq[b2][2]);
-            const float sjk = saccot::compat_score(dp, dq, tau, inv_tau, min_sep);
-            const bool valid = sel_s[b1] > 0.0f && sel_s[b2] > 0.0f && sjk > 0.0f;
-            if (valid) v = saccot::add_rn(saccot::add_rn(sel_s[b1], sel_s[b2]), sjk);
-            if (mode == 1) {
-                // np.triu_indices(B, k=1) order.
-                const int p = b1 * (2 * B - b1 - 1) / 2 + (b2 - b1 - 1);
-                cand_row[p] = v;
-            }
-        }
-        grid_s[pid] = v;
-    }
+    saccot::candidate_grid(sel_s, &sp[0][0], &sq[0][0], B, tau, inv_tau, min_sep, grid_s,
+                           mode == 1 ? cand_row : nullptr);
     if (mode == 1) return;
-    __syncthreads();
-
-    // Mode 2: T argmax rounds over the grid, lowest pair id among ties.
-    long long* j_row = cand_j + ab * top_t;
-    long long* k_row = cand_k + ab * top_t;
-    for (int t = 0; t < top_t; ++t) {
-        float v = -INFINITY;
-        int slot = B * B;
-        for (int pid = threadIdx.x; pid < B * B; pid += kThreads) {
-            if (saccot::key_before(grid_s[pid], pid, v, slot)) { v = grid_s[pid]; slot = pid; }
-        }
-        saccot::block_argmax(v, slot, red_v, red_i);
-        if (threadIdx.x == 0) {
-            slot = min(slot, B * B - 1);
-            const int b1 = slot / B;
-            const int b2 = slot - b1 * B;
-            cand_row[t] = fmaxf(v, -1.0f);
-            j_row[t] = sel_i[b1];
-            k_row[t] = sel_i[b2];
-            grid_s[slot] = -INFINITY;
-        }
-        __syncthreads();
-    }
+    saccot::grid_top_t(grid_s, sel_i, B, top_t, red_v, red_i, cand_row,
+                       cand_j + ab * top_t, cand_k + ab * top_t);
 }
 
 }  // namespace

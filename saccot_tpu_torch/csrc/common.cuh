@@ -1,7 +1,7 @@
 // Shared device helpers for the SAC-COT kernels.
 //
-// The compatibility predicate lives here once and is used by the degree
-// kernel (compat_degrees.cu) and the anchor top-B kernel (anchor_topb.cu):
+// The compatibility predicate lives here once and is used by every kernel
+// that scores a pair (the degree, anchor top-B and candidate kernels):
 //
 //   s(i, j) = (|dp - dq| < tau  &&  min(dp, dq) > min_sep) ? 1 - |dp - dq| * (1/tau) : 0
 //
@@ -82,6 +82,68 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* red_v, int
     v = red_v[0];
     i = red_i[0];
     __syncthreads();  // red_* may be rewritten by the next call
+}
+
+// Candidate triangles of one anchor from its B selected neighbours, shared by
+// the fused anchor kernel (anchor_topb.cu) and the streamed path's candidate
+// kernel (candidate_topt.cu), so both score and rank candidates bit for bit
+// alike. Inputs live in shared memory: sel_s[B] the neighbour scores (a score
+// <= 0 marks an invalid selection), sp / sq[3 * B] the neighbours' coordinates
+// (x, y, z per neighbour).
+// Fills grid_s[B * B]: entry b1 * B + b2 holds (s_b1 + s_b2) + s_b1b2 when
+// b1 < b2 and all three edges are positive, -1 otherwise. With `triu` set it
+// also writes the upper-triangle entries in np.triu_indices(B, k=1) order.
+// Every thread of the block must call it; it ends with a barrier.
+__device__ __forceinline__ void candidate_grid(const float* sel_s, const float* sp,
+                                               const float* sq, int B, float tau,
+                                               float inv_tau, float min_sep, float* grid_s,
+                                               float* triu) {
+    for (int pid = threadIdx.x; pid < B * B; pid += blockDim.x) {
+        const int b1 = pid / B;
+        const int b2 = pid - b1 * B;
+        float v = -1.0f;
+        if (b1 < b2) {
+            const float* p1 = sp + 3 * b1;
+            const float* p2 = sp + 3 * b2;
+            const float* q1 = sq + 3 * b1;
+            const float* q2 = sq + 3 * b2;
+            const float dp = dist3(p1[0], p1[1], p1[2], p2[0], p2[1], p2[2]);
+            const float dq = dist3(q1[0], q1[1], q1[2], q2[0], q2[1], q2[2]);
+            const float sjk = compat_score(dp, dq, tau, inv_tau, min_sep);
+            const bool valid = sel_s[b1] > 0.0f && sel_s[b2] > 0.0f && sjk > 0.0f;
+            if (valid) v = add_rn(add_rn(sel_s[b1], sel_s[b2]), sjk);
+            if (triu) triu[b1 * (2 * B - b1 - 1) / 2 + (b2 - b1 - 1)] = v;
+        }
+        grid_s[pid] = v;
+    }
+    __syncthreads();
+}
+
+// top_t argmax rounds over the candidate grid (score desc, pair id asc, the
+// order of lax.top_k over the flattened grid), each winner knocked out with
+// -inf. Writes max(score, -1) and the node ids sel_i[b1], sel_i[b2] of the
+// winner's two neighbours. Every thread of the block must call it.
+__device__ __forceinline__ void grid_top_t(float* grid_s, const int* sel_i, int B, int top_t,
+                                           float* red_v, int* red_i, float* cand_row,
+                                           long long* j_row, long long* k_row) {
+    for (int t = 0; t < top_t; ++t) {
+        float v = -INFINITY;
+        int slot = B * B;
+        for (int pid = threadIdx.x; pid < B * B; pid += blockDim.x) {
+            if (key_before(grid_s[pid], pid, v, slot)) { v = grid_s[pid]; slot = pid; }
+        }
+        block_argmax(v, slot, red_v, red_i);
+        if (threadIdx.x == 0) {
+            slot = min(slot, B * B - 1);
+            const int b1 = slot / B;
+            const int b2 = slot - b1 * B;
+            cand_row[t] = fmaxf(v, -1.0f);
+            j_row[t] = sel_i[b1];
+            k_row[t] = sel_i[b2];
+            grid_s[slot] = -INFINITY;
+        }
+        __syncthreads();
+    }
 }
 
 }  // namespace saccot

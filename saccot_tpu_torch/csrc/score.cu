@@ -6,24 +6,37 @@
 // mask into q by moving masked targets to 1e15; here a masked point is skipped
 // explicitly.
 //
-// Bound: FP32 FMAs. About 1.3e8 (hypothesis, point) pairs per batch at the
-// bench point (128 x 1024 hypotheses x 1000 points), ~15 operations each;
-// the points are re-read from shared memory, so device memory traffic is
-// O(K + N) per batch.
+// Bound: FP32 operations. About 1.3e8 (hypothesis, point) pairs per batch at
+// the bench point (128 x 1024 hypotheses x 1000 points), 2e8 at the kitti
+// point (2 x 2048 x 50,000), ~25 operations each; the points are re-read
+// from shared memory, so device memory traffic is O(K + N) per batch.
 //
 // Design: grid (hypothesis tiles, batch), one hypothesis per thread holding
 // its 12 floats in registers, and a loop over point tiles staged in shared
 // memory as SoA. The count is an int32 register accumulator; the square root
 // of the weighted mode is only computed in that mode. The residual is formed
-// as ((t - q) + r0 p0) + r1 p1 + r2 p2, the TPU kernel's order; nvcc contracts
-// the products into FMAs, so a residual within an ulp of tau^2 may count
-// differently from the plain PyTorch version.
+// as ((t - q) + r0 p0) + r1 p1 + r2 p2, the TPU kernel's order, with explicitly
+// rounded operations (common.cuh), as the plain PyTorch version forms it: no
+// product contracts into an FMA, so every inlier decision, and so every count,
+// equals the plain version's. (With FMAs, 0.27% of the hypotheses at the
+// kitti point, N = 50,000, counted one point differently.)
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kPointTile = 512;
+
+using saccot::add_rn;
+using saccot::mul_rn;
+using saccot::sub_rn;
+
+// ((t - q) + r0 p0) + r1 p1) + r2 p2, each operation rounded on its own.
+__device__ __forceinline__ float residual(float t, float q, float r0, float r1, float r2,
+                                          float p0, float p1, float p2) {
+    return add_rn(add_rn(add_rn(sub_rn(t, q), mul_rn(r0, p0)), mul_rn(r1, p1)),
+                  mul_rn(r2, p2));
+}
 
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
@@ -62,13 +75,15 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
         __syncthreads();
         for (int i = 0; i < n; ++i) {
             const float px = spx[i], py = spy[i], pz = spz[i];
-            const float x0 = t[0] - sqx[i] + r[0] * px + r[1] * py + r[2] * pz;
-            const float x1 = t[1] - sqy[i] + r[3] * px + r[4] * py + r[5] * pz;
-            const float x2 = t[2] - sqz[i] + r[6] * px + r[7] * py + r[8] * pz;
-            const float d2 = x0 * x0 + x1 * x1 + x2 * x2;
+            const float x0 = residual(t[0], sqx[i], r[0], r[1], r[2], px, py, pz);
+            const float x1 = residual(t[1], sqy[i], r[3], r[4], r[5], px, py, pz);
+            const float x2 = residual(t[2], sqz[i], r[6], r[7], r[8], px, py, pz);
+            const float d2 = add_rn(add_rn(mul_rn(x0, x0), mul_rn(x1, x1)), mul_rn(x2, x2));
             const bool live = sm[i] > 0.0f;
             count += (live && d2 < tau2) ? 1 : 0;
-            if (weighted && live) wsum += fmaxf(0.0f, 1.0f - sqrtf(d2) * inv_tau);
+            if (weighted && live) {
+                wsum += fmaxf(0.0f, sub_rn(1.0f, mul_rn(__fsqrt_rn(d2), inv_tau)));
+            }
         }
         __syncthreads();
     }

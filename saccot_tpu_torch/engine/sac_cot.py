@@ -7,8 +7,9 @@ Port of `saccot_tpu/engine/sac_cot.py` (`register_batch` and
 package's `vmap` becomes the explicit leading batch axis of every tensor.
 
 `impl="kernel"` routes the four hot stages through the kernel wrappers
-(the CUDA kernels for CUDA tensors, their plain versions for CPU tensors);
-`impl="plain"` runs the plain PyTorch versions on any device.
+(the CUDA kernels for CUDA tensors, their plain versions for CPU tensors),
+which pick their kernel by N (no cap); `impl="plain"` runs the plain
+PyTorch versions on any device.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from saccot_tpu_torch.engine.svd3 import transform_from_rt, umeyama
 from saccot_tpu_torch.kernels import compat as compat_k
 from saccot_tpu_torch.kernels import score as score_k
 from saccot_tpu_torch.kernels import solve3 as solve3_k
-from saccot_tpu_torch.kernels.triangles import MAX_N_FUSED, MAX_NEIGHBORS
+from saccot_tpu_torch.kernels.triangles import MAX_NEIGHBORS
 
 
 class RegistrationResult(NamedTuple):
@@ -63,15 +64,10 @@ def register_batch(
     P = P.to(torch.float32)
     Q = Q.to(torch.float32)
     batch, N, _ = P.shape
-    if P.is_cuda and impl == "kernel":
-        if N > MAX_N_FUSED:
-            raise NotImplementedError(
-                f"N={N} > {MAX_N_FUSED}: the large-N slice (the N > 4096 pool path "
-                "and its streaming kernels) is ROADMAP queue 1 item 5, not ported yet")
-        if min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS:
-            raise NotImplementedError(
-                f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernel holds the "
-                "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
+    if P.is_cuda and impl == "kernel" and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS:
+        raise NotImplementedError(
+            f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernels hold the "
+            "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
     m = (torch.ones((batch, N), dtype=torch.float32, device=P.device)
          if mask is None else mask.to(torch.float32))
     # None masks (not all-ones) let the kernels skip their mask reads.

@@ -1,11 +1,15 @@
 """Compatibility-triangle (COT) pool: ranking and selection — PyTorch.
 
-Port of the N <= 4096 path of `saccot_tpu/engine/triangles.py`
-(`triangle_pool_from_points` with the fused anchor kernel):
+Port of `saccot_tpu/engine/triangles.py::triangle_pool_from_points` on its
+kernel route (`impl="pallas"`):
 
   1. anchors: the `num_anchors` nodes of highest weighted degree;
   2. per anchor, its `neighbors_per_anchor` strongest edges and the candidate
-     triangles among them (kernels/triangles.anchor_neighbors);
+     triangles among them. Up to N = MAX_N_FUSED one fused kernel does both
+     (kernels/triangles.anchor_neighbors); above it the neighbours are
+     streamed (anchor_neighbors_stream) and the candidates scored from the
+     gathered neighbour coordinates: by `candidate_topt` in the fast config,
+     by `_pool_from_neighbors` in torch in the exact one;
   3. fast config (`per_anchor_candidates = T > 0`): each anchor's top-T
      candidates, then a global top-K over the A*T of them (the identity when
      A*T <= K);
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu_torch.engine.compat import pair_distances, pair_score
 from saccot_tpu_torch.kernels import triangles as tri_kernels
 from saccot_tpu_torch.kernels.triangles import topk_stable
 
@@ -47,36 +52,94 @@ def triangle_pool_from_points(
 ) -> TrianglePool:
     """Degrees and points [batch, N, 3] in, ranked triangles out.
 
-    impl="kernel" goes through `kernels.triangles.anchor_neighbors` (the CUDA
-    kernel on a card, its plain version on the CPU); impl="plain" calls the
-    plain version on any device.
+    impl="kernel" goes through the kernel wrappers of `kernels.triangles`
+    (the CUDA kernels on a card, their plain versions on the CPU);
+    impl="plain" calls the plain versions on any device. Both take the
+    route that N selects.
     """
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    plain = impl == "plain"
     batch, N, _ = P.shape
     A = min(params.num_anchors, N)
     B = min(params.neighbors_per_anchor, N - 1)
+    T = min(params.per_anchor_candidates, B * (B - 1) // 2)
     _, anchors = topk_stable(deg, A)                               # [batch, A]
     anchor_mask = None if mask is None else torch.gather(mask, 1, anchors)
-    fn = (tri_kernels.anchor_neighbors if impl == "kernel"
-          else tri_kernels.anchor_neighbors_reference)
+    args = (P, Q, anchors, B, params.compat_tau, params.min_separation)
+    kw = dict(mask=mask, anchor_mask=anchor_mask)
+    if N > tri_kernels.MAX_N_FUSED:
+        # Stream the neighbours, then score candidates from their coordinates.
+        nbr_s, nbr_idx = (tri_kernels.anchor_neighbors_reference if plain
+                          else tri_kernels.anchor_neighbors_stream)(*args, **kw)
+        if params.per_anchor_candidates > 0:
+            nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
+            cand_s, cand_j, cand_k = (
+                tri_kernels.candidate_topt_reference if plain else tri_kernels.candidate_topt)(
+                nbr_s, nbr_idx, nbr_p, nbr_q, T, params.compat_tau, params.min_separation)
+            return _pool_from_preranked(anchors, cand_s, cand_j, cand_k, params)
+        return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params)
+    fn = tri_kernels.anchor_neighbors_reference if plain else tri_kernels.anchor_neighbors
     if params.per_anchor_candidates > 0:
-        T = min(params.per_anchor_candidates, B * (B - 1) // 2)
-        _, _, cand_s, cand_j, cand_k = fn(
-            P, Q, anchors, B, params.compat_tau, params.min_separation,
-            mask=mask, anchor_mask=anchor_mask, top_t=T)
+        _, _, cand_s, cand_j, cand_k = fn(*args, **kw, top_t=T)
         return _pool_from_preranked(anchors, cand_s, cand_j, cand_k, params)
-    nbr_s, nbr_idx, cand = fn(
-        P, Q, anchors, B, params.compat_tau, params.min_separation,
-        mask=mask, anchor_mask=anchor_mask, emit_candidates=True)
-    b1, b2 = (torch.as_tensor(x, device=P.device) for x in np.triu_indices(B, k=1))
+    nbr_s, nbr_idx, cand = fn(*args, **kw, emit_candidates=True)
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N)
+
+
+def _rank_neighbor_candidates(
+    anchors: torch.Tensor,   # [batch, A] anchor node ids
+    nbr_s: torch.Tensor,     # [batch, A, B] neighbour scores, descending
+    nbr_idx: torch.Tensor,   # [batch, A, B] neighbour node ids
+    cand: torch.Tensor,      # [batch, A, Pairs] candidate scores, -1 = invalid
+    params: SacCotParams,
+    n_nodes: int,
+) -> TrianglePool:
+    """(exact dedup) -> ranking of the candidates (anchor, b1, b2), b1 < b2
+    in `np.triu_indices(B, k=1)` order."""
+    batch, A, B = nbr_idx.shape
+    b1, b2 = (torch.as_tensor(x, device=anchors.device) for x in np.triu_indices(B, k=1))
     i = anchors[:, :, None].expand(batch, A, b1.shape[0])
     j = nbr_idx[:, :, b1]
     k = nbr_idx[:, :, b2]
     dedup_done = False
     if params.dedup_triangles:
-        dup = _mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2, N)
+        dup = _mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2, n_nodes)
         cand = torch.where(dup, -1.0, cand)
         dedup_done = True
     return _rank_candidates(i, j, k, cand, params, dedup_done=dedup_done)
+
+
+def _pool_from_neighbors(
+    anchors: torch.Tensor,   # [batch, A] anchor node ids
+    nbr_s: torch.Tensor,     # [batch, A, B] neighbour scores, descending
+    nbr_idx: torch.Tensor,   # [batch, A, B] neighbour node ids
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    params: SacCotParams,
+) -> TrianglePool:
+    """Candidate triangles scored from the neighbours' coordinates, then
+    ranked (the exact config above MAX_N_FUSED).
+
+    s_jk uses the shared predicate (`engine.compat.pair_score` on direct
+    differences); the JAX version takes `jnp.linalg.norm`, so a score within
+    an ulp of tau or min_separation may decide differently.
+    """
+    batch, A, B = nbr_idx.shape
+    b1, b2 = (torch.as_tensor(x, device=P.device) for x in np.triu_indices(B, k=1))
+    nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
+    i = anchors[:, :, None]
+    j = nbr_idx[:, :, b1]
+    k = nbr_idx[:, :, b2]
+    s_ij = nbr_s[:, :, b1]
+    s_ik = nbr_s[:, :, b2]
+    s_jk = pair_score(pair_distances(nbr_p[:, :, b1], nbr_p[:, :, b2]),
+                      pair_distances(nbr_q[:, :, b1], nbr_q[:, :, b2]),
+                      params.compat_tau, params.min_separation)
+    s_jk = torch.where(j != k, s_jk, 0.0)
+    valid = ((s_ij > 0) & (s_ik > 0) & (s_jk > 0) & (i != j) & (i != k) & (j != k))
+    cand = torch.where(valid, s_ij + s_ik + s_jk, -1.0)
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, P.shape[1])
 
 
 def _mark_cross_anchor_duplicates(

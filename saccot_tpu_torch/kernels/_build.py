@@ -9,8 +9,8 @@ unchanged one is reused.
 
 Every entry point returns `cudaGetLastError()` right after its launch;
 `check` raises on a non-zero code. `LAUNCHES` holds one plain integer per
-kernel (two for the anchor kernel: its candidate and top-T modes), which a
-wrapper bumps exactly where it launches its kernel.
+kernel (three for the fused anchor kernel: its neighbour, candidate and top-T
+modes), which a wrapper bumps exactly where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -33,9 +33,12 @@ NVCC_FLAGS = [
 
 LAUNCHES: Dict[str, int] = {
     "compat_degrees": 0,
+    "compat_degrees_tri": 0,      # symmetric route, N > 2048
     "anchor_topb": 0,             # neighbours only
     "anchor_topb_candidates": 0,  # + all B(B-1)/2 candidate scores
     "anchor_topb_topt": 0,        # + per-anchor top-T candidates
+    "anchor_topb_stream": 0,      # neighbours over column tiles, N > 4096
+    "candidate_topt": 0,          # top-T candidates from gathered neighbours
     "solve3": 0,
     "score": 0,
 }
@@ -46,7 +49,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _P],
+    "saccot_compat_degrees_tri": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _P],
     "saccot_anchor_topb": [_P] * 10 + [_I] * 7 + [_F, _F, _F, _P],
+    "saccot_anchor_topb_stream": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P],
+    "saccot_candidate_topt": [_P] * 7 + [_I] * 4 + [_F, _F, _F, _P],
     "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
     "saccot_score": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
 }

@@ -12,14 +12,19 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
 
 
-def f32_points(x: torch.Tensor, batch: int, n: int, name: str = "points") -> torch.Tensor:
-    """A contiguous float32 [batch, n, 3] CUDA tensor, or raise."""
+def f32_tensor(x: torch.Tensor, shape: tuple, name: str) -> torch.Tensor:
+    """A contiguous float32 CUDA tensor of the given shape, or raise."""
     _require_cuda(x, name)
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != (batch, n, 3):
-        raise ValueError(f"{name} must have shape {(batch, n, 3)}, got {tuple(x.shape)}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
     return x.contiguous()
+
+
+def f32_points(x: torch.Tensor, batch: int, n: int, name: str = "points") -> torch.Tensor:
+    """A contiguous float32 [batch, n, 3] CUDA tensor, or raise."""
+    return f32_tensor(x, (batch, n, 3), name)
 
 
 def index_tensor(x: torch.Tensor, shape: tuple, name: str) -> torch.Tensor:

@@ -1,9 +1,14 @@
-"""Compatibility degrees: CUDA kernel wrapper and its plain PyTorch version.
+"""Compatibility degrees: CUDA kernel wrappers and their plain PyTorch version.
 
-Replaces `saccot_tpu/kernels/compat.py::_degree_kernel_mxu` with
-`csrc/compat_degrees.cu`. `degrees` launches the kernel for CUDA tensors and
-runs `degrees_reference` (the blocked plain version, `engine/compat.degrees`)
-for CPU tensors; it never falls back from one to the other.
+Two TPU kernels are replaced, and `degrees` routes between them as
+`saccot_tpu/kernels/compat.py::degrees_pallas` does:
+  - `_degree_kernel_mxu` (two-sided) by `csrc/compat_degrees.cu`;
+  - `_degree_kernel_mxu_tri` (symmetric: the rows are the columns, row offset
+    0, one mask for both, R > `TRI_MIN_ROWS`) by `csrc/compat_degrees_tri.cu`,
+    which evaluates each unordered pair once.
+For CUDA tensors `degrees` launches a kernel; for CPU tensors it runs
+`degrees_reference` (the blocked plain version, `engine/compat.degrees`, the
+plain version of both kernels). It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -19,6 +24,19 @@ from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
 
 degrees_reference = compat_mod.degrees
+
+# The symmetric route is taken above this many rows (the reference's TR_MXU).
+TRI_MIN_ROWS = 2048
+_TRI_TILE = 128  # tile edge of csrc/compat_degrees_tri.cu
+
+
+def _is_symmetric(P_rows, Q_rows, P_cols, Q_cols, row_offset, mask_rows, mask_cols) -> bool:
+    """Rows and columns are the same points and masks: each condition is
+    tested on its own (a tensor or NumPy row offset never takes this route)."""
+    same_points = P_rows is P_cols and Q_rows is Q_cols
+    same_masks = mask_rows is mask_cols
+    zero_offset = type(row_offset) is int and row_offset == 0
+    return same_points and same_masks and zero_offset and P_rows.shape[-2] > TRI_MIN_ROWS
 
 
 def degrees(
@@ -40,6 +58,23 @@ def degrees(
         return degrees_reference(P_rows, Q_rows, P_cols, Q_cols, params,
                                  row_offset=row_offset, mask_rows=mask_rows,
                                  mask_cols=mask_cols)
+    if _is_symmetric(P_rows, Q_rows, P_cols, Q_cols, row_offset, mask_rows, mask_cols):
+        return degrees_tri(P_rows, Q_rows, params, mask=mask_rows)
+    return degrees_two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset=row_offset,
+                             mask_rows=mask_rows, mask_cols=mask_cols)
+
+
+def degrees_two_sided(
+    P_rows: torch.Tensor,
+    Q_rows: torch.Tensor,
+    P_cols: torch.Tensor,
+    Q_cols: torch.Tensor,
+    params: SacCotParams,
+    row_offset: int = 0,
+    mask_rows: Optional[torch.Tensor] = None,
+    mask_cols: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`degrees` through `csrc/compat_degrees.cu` (CUDA tensors only)."""
     batch, R, _ = P_rows.shape
     C = P_cols.shape[1]
     P_rows, Q_rows = f32_points(P_rows, batch, R), f32_points(Q_rows, batch, R)
@@ -58,4 +93,41 @@ def degrees(
     )
     _build.check(rc, "compat_degrees")
     _build.LAUNCHES["compat_degrees"] += 1
+    return deg
+
+
+def degrees_tri(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    params: SacCotParams,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """deg [batch, N] of the symmetric problem P, Q [batch, N, 3] (mask
+    [batch, N] on both sides), each unordered pair evaluated once by
+    `csrc/compat_degrees_tri.cu`; the plain version on CPU tensors.
+
+    Deterministic: pair weights are summed in a fixed order (no atomics), so
+    two calls on the same input return the same bits.
+    """
+    if not P.is_cuda:
+        return degrees_reference(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    batch, N, _ = P.shape
+    P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
+    mask = optional_mask(mask, batch, N, P.device)
+    deg = torch.empty((batch, N), dtype=torch.float32, device=P.device)
+    if batch == 0 or N == 0:
+        return deg
+    n_tiles = -(-N // _TRI_TILE)
+    if n_tiles * (n_tiles + 1) // 2 >= 2 ** 31:
+        raise ValueError(f"degrees_tri takes N <= {_TRI_TILE * 65535} (got {N})")
+    # Per-tile partial degrees, summed in tile order by the kernel's second pass.
+    part = torch.empty((batch, n_tiles, N), dtype=torch.float32, device=P.device)
+    lib = _build.library()
+    rc = lib.saccot_compat_degrees_tri(
+        ptr(P), ptr(Q), ptr(mask), ptr(part), ptr(deg), batch, N, n_tiles,
+        float(params.compat_tau), float(np.float32(1.0 / params.compat_tau)),
+        float(params.min_separation), stream_of(deg),
+    )
+    _build.check(rc, "compat_degrees_tri")
+    _build.LAUNCHES["compat_degrees_tri"] += 1
     return deg

@@ -1,15 +1,22 @@
-"""Anchor top-B neighbours and candidate triangles: CUDA kernel wrapper and
-its plain PyTorch version.
+"""Anchor top-B neighbours and candidate triangles: CUDA kernel wrappers and
+their plain PyTorch versions.
 
-Replaces `saccot_tpu/kernels/triangles.py::_anchor_topb_kernel` with
-`csrc/anchor_topb.cu`, in both of its output modes:
-  - `emit_candidates=True`: the score of every candidate triangle
-    (anchor, b1, b2), b1 < b2 in `np.triu_indices(B, k=1)` order, -1 when
-    invalid (the exact config);
-  - `top_t > 0`: each anchor's top-T candidates with decoded neighbour node
-    ids (the fast config).
+Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
+  - `_anchor_topb_kernel` by `csrc/anchor_topb.cu` (`anchor_neighbors`,
+    N <= MAX_N_FUSED: the anchor row lives in shared memory), in both of its
+    output modes:
+      `emit_candidates=True`: the score of every candidate triangle
+      (anchor, b1, b2), b1 < b2 in `np.triu_indices(B, k=1)` order, -1 when
+      invalid (the exact config);
+      `top_t > 0`: each anchor's top-T candidates with decoded neighbour
+      node ids (the fast config);
+  - `_anchor_topb_stream_kernel` by `csrc/anchor_topb_stream.cu`
+    (`anchor_neighbors_stream`, any N: column tiles merged into a running
+    top-B);
+  - `_candidate_topt_kernel` by `csrc/candidate_topt.cu` (`candidate_topt`:
+    the top-T mode's second half, from gathered neighbour coordinates).
 Selection order is `lax.top_k`'s: score descending, lowest index first. The
-plain version gets it from a stable descending sort (`torch.topk` does not
+plain versions get it from a stable descending sort (`torch.topk` does not
 promise it).
 """
 
@@ -23,11 +30,13 @@ import torch
 from saccot_tpu_torch.engine.compat import cross_distances, pair_distances, pair_score
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import (
-    f32_points, index_tensor, optional_mask, ptr, stream_of,
+    f32_points, f32_tensor, index_tensor, optional_mask, ptr, stream_of,
 )
 
 MAX_N_FUSED = 4096   # the anchor row lives in shared memory (16 KB)
 MAX_NEIGHBORS = 32   # the B x B pair grid lives in shared memory
+TILE_N_STREAM = 2048  # column tile of the streaming kernel (8 KB of shared memory)
+_MAX_TILE_N = 12288   # 48 KB of dynamic shared memory without an opt-in
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -66,24 +75,149 @@ def anchor_neighbors_reference(
     if not (emit_candidates or top_t):
         return nbr_s, nbr_idx
 
-    A = anchors.shape[1]
+    nbr_p, nbr_q = gather_neighbors(P, Q, nbr_idx)
+    if not top_t:
+        b1, b2 = np.triu_indices(B, k=1)
+        cand3 = _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation)
+        return nbr_s, nbr_idx, cand3[:, :, b1, b2]
+    return (nbr_s, nbr_idx) + candidate_topt_reference(
+        nbr_s, nbr_idx, nbr_p, nbr_q, top_t, compat_tau, min_separation)
+
+
+def gather_neighbors(P: torch.Tensor, Q: torch.Tensor, nbr_idx: torch.Tensor):
+    """Coordinates of the selected neighbours: nbr_idx [batch, A, B] ->
+    nbr_p, nbr_q [batch, A, B, 3]."""
+    batch, A, B = nbr_idx.shape
     nidx = nbr_idx.reshape(batch, A * B, 1).expand(batch, A * B, 3)
-    nbr_p = torch.gather(P, 1, nidx).reshape(batch, A, B, 3)
-    nbr_q = torch.gather(Q, 1, nidx).reshape(batch, A, B, 3)
+    return (torch.gather(P, 1, nidx).reshape(batch, A, B, 3),
+            torch.gather(Q, 1, nidx).reshape(batch, A, B, 3))
+
+
+def _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation) -> torch.Tensor:
+    """[batch, A, B, B] candidate scores (s_b1 + s_b2) + s_b1b2 where b1 < b2
+    and all three edges are positive, -1 elsewhere (selections with score
+    <= 0 are invalid)."""
+    B = nbr_s.shape[-1]
     s_jk = pair_score(pair_distances(nbr_p[:, :, :, None], nbr_p[:, :, None, :]),
                       pair_distances(nbr_q[:, :, :, None], nbr_q[:, :, None, :]),
                       compat_tau, min_separation)                  # [batch, A, B, B]
     s1, s2 = nbr_s[..., :, None], nbr_s[..., None, :]
-    upper = torch.ones(B, B, dtype=torch.bool, device=P.device).triu(1)
+    upper = torch.ones(B, B, dtype=torch.bool, device=nbr_s.device).triu(1)
     valid = (s1 > 0) & (s2 > 0) & (s_jk > 0) & upper
-    cand3 = torch.where(valid, s1 + s2 + s_jk, -1.0)
-    if not top_t:
-        b1, b2 = np.triu_indices(B, k=1)
-        return nbr_s, nbr_idx, cand3[:, :, b1, b2]
+    return torch.where(valid, s1 + s2 + s_jk, -1.0)
+
+
+def candidate_topt_reference(
+    nbr_s: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    nbr_p: torch.Tensor,
+    nbr_q: torch.Tensor,
+    top_t: int,
+    compat_tau: float,
+    min_separation: float,
+):
+    """Plain version of `candidate_topt` (same arguments and returns)."""
+    batch, A, B = nbr_s.shape
+    cand3 = _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation)
     v, slot = topk_stable(cand3.reshape(batch, A, B * B), top_t)
-    cand_j = torch.gather(nbr_idx, 2, slot // B).clamp(0, N - 1)
-    cand_k = torch.gather(nbr_idx, 2, slot % B).clamp(0, N - 1)
-    return nbr_s, nbr_idx, torch.clamp_min(v, -1.0), cand_j, cand_k
+    cand_j = torch.gather(nbr_idx, 2, slot // B)
+    cand_k = torch.gather(nbr_idx, 2, slot % B)
+    return torch.clamp_min(v, -1.0), cand_j, cand_k
+
+
+def candidate_topt(
+    nbr_s: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    nbr_p: torch.Tensor,
+    nbr_q: torch.Tensor,
+    top_t: int,
+    compat_tau: float,
+    min_separation: float,
+):
+    """Each anchor's top-T candidate triangles from its selections.
+
+    nbr_s [batch, A, B] float32 (descending; <= 0 marks an invalid
+    selection), nbr_idx [batch, A, B] int64 node ids, nbr_p / nbr_q
+    [batch, A, B, 3] their coordinates (`gather_neighbors`). Returns cand_s
+    [batch, A, T] float32 (max(score, -1)), cand_j, cand_k [batch, A, T] int64
+    node ids of each candidate's two neighbours: the top-T mode of
+    `anchor_neighbors` on the same selections.
+    """
+    if not nbr_s.is_cuda:
+        return candidate_topt_reference(nbr_s, nbr_idx, nbr_p, nbr_q, top_t, compat_tau,
+                                        min_separation)
+    batch, A, B = nbr_s.shape
+    if not 1 <= B <= MAX_NEIGHBORS:
+        raise ValueError(f"candidate_topt on CUDA takes 1 <= B <= {MAX_NEIGHBORS} (got {B})")
+    if not 1 <= top_t <= B * (B - 1) // 2:
+        raise ValueError(f"top_t={top_t} must lie in [1, {B * (B - 1) // 2}]")
+    nbr_s = f32_tensor(nbr_s, (batch, A, B), "nbr_s")
+    nbr_idx = index_tensor(nbr_idx, (batch, A, B), "nbr_idx")
+    nbr_p = f32_tensor(nbr_p, (batch, A, B, 3), "nbr_p")
+    nbr_q = f32_tensor(nbr_q, (batch, A, B, 3), "nbr_q")
+    dev = nbr_s.device
+    cand = torch.empty((batch, A, top_t), dtype=torch.float32, device=dev)
+    cand_j = torch.empty((batch, A, top_t), dtype=torch.int64, device=dev)
+    cand_k = torch.empty((batch, A, top_t), dtype=torch.int64, device=dev)
+    if batch and A:
+        lib = _build.library()
+        rc = lib.saccot_candidate_topt(
+            ptr(nbr_s), ptr(nbr_idx), ptr(nbr_p), ptr(nbr_q), ptr(cand), ptr(cand_j),
+            ptr(cand_k), batch, A, B, top_t, float(compat_tau),
+            float(np.float32(1.0 / compat_tau)), float(min_separation), stream_of(cand),
+        )
+        _build.check(rc, "candidate_topt")
+        _build.LAUNCHES["candidate_topt"] += 1
+    return cand, cand_j, cand_k
+
+
+def anchor_neighbors_stream(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    anchors: torch.Tensor,
+    num_neighbors: int,
+    compat_tau: float,
+    min_separation: float,
+    mask: Optional[torch.Tensor] = None,
+    anchor_mask: Optional[torch.Tensor] = None,
+    tile_n: int = TILE_N_STREAM,
+):
+    """Top-B compatibility neighbours of each anchor at any N: (nbr_s
+    [batch, A, B] float32 descending, nbr_idx [batch, A, B] int64).
+
+    Same selection as `anchor_neighbors` without candidates, bit for bit,
+    whatever `tile_n` (the width of the column tiles the kernel streams). The
+    plain version is `anchor_neighbors_reference`.
+    """
+    if not P.is_cuda:
+        return anchor_neighbors_reference(P, Q, anchors, num_neighbors, compat_tau,
+                                          min_separation, mask=mask, anchor_mask=anchor_mask)
+    batch, N, _ = P.shape
+    A = anchors.shape[1]
+    B = num_neighbors
+    if not 1 <= B <= min(MAX_NEIGHBORS, N):
+        raise ValueError(f"anchor_neighbors_stream on CUDA takes 1 <= B <= {MAX_NEIGHBORS} "
+                         f"and B <= N (got B={B}, N={N})")
+    if not 1 <= tile_n <= _MAX_TILE_N:
+        raise ValueError(f"tile_n must lie in [1, {_MAX_TILE_N}], got {tile_n}")
+    P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
+    anchors = index_tensor(anchors, (batch, A), "anchors")
+    mask = optional_mask(mask, batch, N, P.device)
+    anchor_mask = optional_mask(anchor_mask, batch, A, P.device)
+    nbr_s = torch.empty((batch, A, B), dtype=torch.float32, device=P.device)
+    nbr_idx = torch.empty((batch, A, B), dtype=torch.int64, device=P.device)
+    if batch and A:
+        lib = _build.library()
+        rc = lib.saccot_anchor_topb_stream(
+            ptr(P), ptr(Q), ptr(anchors), ptr(mask), ptr(anchor_mask), ptr(nbr_s),
+            ptr(nbr_idx), batch, N, A, B, int(tile_n), float(compat_tau),
+            float(np.float32(1.0 / compat_tau)), float(min_separation), stream_of(nbr_s),
+        )
+        _build.check(rc, "anchor_topb_stream")
+        _build.LAUNCHES["anchor_topb_stream"] += 1
+    # B <= N, so every slot holds a real column; the clamp keeps downstream
+    # gathers safe, as the TPU wrapper's does.
+    return nbr_s, nbr_idx.clamp_(max=N - 1)
 
 
 def anchor_neighbors(
@@ -116,10 +250,10 @@ def anchor_neighbors(
     A = anchors.shape[1]
     B = num_neighbors
     if N > MAX_N_FUSED:
-        raise NotImplementedError(
-            f"anchor_neighbors on CUDA holds N <= {MAX_N_FUSED} (got {N}); the "
-            "streaming kernel for larger N (_anchor_topb_stream_kernel) is in "
-            "ROADMAP queue 2, for the large-N slice of queue 1 item 5")
+        raise ValueError(
+            f"anchor_neighbors on CUDA holds the anchor row in shared memory, N <= "
+            f"{MAX_N_FUSED} (got {N}); larger N goes through anchor_neighbors_stream "
+            "and candidate_topt, as engine.triangles.triangle_pool_from_points routes it")
     if not 1 <= B <= min(MAX_NEIGHBORS, N):
         raise NotImplementedError(
             f"anchor_neighbors on CUDA takes 1 <= B <= {MAX_NEIGHBORS} and B <= N "

@@ -17,7 +17,19 @@ import torch
 
 from saccot_tpu.evaluation.metrics import registration_recall
 from saccot_tpu.io.synthetic import correspondence_problem
+from saccot_tpu.utils.params import SacCotParams
 from saccot_tpu_torch.engine.sac_cot import RegistrationResult
+
+# The kitti run configuration (`saccot_tpu/cli/configs.py`, "kitti"; that
+# module imports JAX, so its values are restated here and a test holds them
+# equal): LiDAR-scale pairs, N = 50,000 correspondences, 70% outliers.
+KITTI_PARAMS = SacCotParams(
+    compat_tau=0.3, min_separation=1.0, inlier_tau=0.3,
+    num_anchors=512, neighbors_per_anchor=16, max_hypotheses=2048,
+    degree_block_rows=512,
+)
+KITTI_SEED = 500
+KITTI_CRITERION = (5.0, 0.6)   # rotation degrees, translation metres
 
 
 def to_torch(*arrays: np.ndarray, device="cpu") -> Tuple[torch.Tensor, ...]:
@@ -51,3 +63,21 @@ def recall(res: RegistrationResult, T_gt: np.ndarray, rot_thresh_deg: float,
     """Fraction of the batch registered within the rotation/translation criterion."""
     T = res.T.detach().cpu().numpy().astype(np.float64)
     return registration_recall(zip(T, T_gt), rot_thresh_deg, trans_thresh)
+
+
+def kitti_problem_batch(seeds: Iterable[int], device="cpu", n: int = 50000):
+    """The kitti configuration's problems, as `run_kitti_config`
+    (`saccot_tpu/cli/runners.py`) makes them: 70% outliers, unit-blob
+    problems with noise 0.05 / 30, n_points = 4 n, rotations up to 0.3 rad
+    and translations up to 3, then coordinates and the T_gt translation
+    scaled by 30 (scene-scale spread, metric noise). Returns (P, Q)
+    [batch, n, 3] on `device` and T_gt [batch, 4, 4] NumPy float64."""
+    scale = 30.0
+    probs = [correspondence_problem(seed=s, n=n, outlier_ratio=0.7, noise=0.05 / scale,
+                                    n_points=4 * n, max_angle=0.3, max_trans=3.0)
+             for s in seeds]
+    T_gt = np.stack([p["T_gt"] for p in probs])
+    T_gt[:, :3, 3] *= scale
+    P, Q = to_torch(np.stack([p["P"] * scale for p in probs]),
+                    np.stack([p["Q"] * scale for p in probs]), device=device)
+    return P, Q, T_gt

@@ -97,7 +97,7 @@ def test_port_imports_no_jax():
         "import saccot_tpu_torch, saccot_tpu_torch.engine, saccot_tpu_torch.kernels._build\n"
         "import saccot_tpu_torch.kernels.compat, saccot_tpu_torch.kernels.triangles\n"
         "import saccot_tpu_torch.kernels.solve3, saccot_tpu_torch.kernels.score\n"
-        "import saccot_tpu_torch.utils.convert\n"
+        "import saccot_tpu_torch.utils.convert, saccot_tpu_torch.utils.profile\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
