@@ -26,7 +26,21 @@ Phases (any failure exits non-zero before the result lines are printed):
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
-     pair and the launch counts of every kernel during the kernel runs.
+     pair and the launch counts of every kernel during the kernel runs;
+  8. the ring-step kernel and the direct-form degree route: ring sums over
+     d = 2 and 4 blocks at the kitti shapes against the plain step, against
+     the symmetric kernel's degrees and bit for bit across two calls; at the
+     bench shapes (d = 2) against `degrees(mxu=False)`; the direct route
+     against the plain degrees at the bench shapes and at the 3DMatch point's
+     sharded shape; CUDA-event times of one step;
+  9. the distributed estimator on two spawned ranks (`dist/local.run_ranks`;
+     NCCL with a card per rank when there are two cards, else gloo on the one
+     card): DP over pairs and TP over hypotheses at the bench point, SP with
+     the ring at the kitti configuration, SP without it at the 3DMatch point,
+     each held to the single-rank runs of phases 4, 5 and 7; which
+     collectives gloo takes on CUDA tensors; each rank's launch counts.
+Each kernel row carries its bound: the larger of its FP32 operations over
+the card's FP32 peak and its bytes over the memory rate (`bound` below).
 The line before the last is a JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -39,8 +53,41 @@ import sys
 import time
 
 
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet): FP32
+# operations outside the tensor cores, and device-memory bytes.
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one scored pair: two distances (6 sub, 6 mul, 4 add),
+# two IEEE square roots (about 6 each: rsqrt plus the Newton step and the
+# rounding fix-up nvcc emits without fast-math), the predicate (7), the
+# i != j test and the masked accumulate (3).
+PAIR_OPS = 40
+# One 3-point solve: gathers, centroids and the 9-entry covariance (~90),
+# Horn's matrix and eight renormalised 4x4 squarings (~1,050), the column
+# pick, two polish steps and the rotation (~210).
+SOLVE_OPS = 1350
+# One (hypothesis, point) score: the residual (3 x 7), its square (5), the
+# threshold and the count.
+SCORE_OPS = 28
+
+
 class PhaseError(RuntimeError):
     pass
+
+
+def bound(ops, nbytes):
+    """(ms, what bounds it): the least time for `ops` FP32 operations and
+    `nbytes` bytes of device memory traffic on one H100."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def degrees_cost(b, R, C, same=False, masked=False):
+    """(ops, bytes) of weighted degrees of R rows against C columns: P and Q
+    read once (rows and columns once each unless they are the same tensors),
+    the masks, the degrees written."""
+    pts = R if same else R + C
+    return PAIR_OPS * b * R * C, 4 * b * (6 * pts + (pts if masked else 0) + R)
 
 
 def check(cond, msg):
@@ -79,7 +126,105 @@ def off_ties(s, gap):
     return ~tie
 
 
+def rot_deg(T_a, T_b):
+    """Rotation angle in degrees between two 4x4 transforms."""
+    import numpy as np
+
+    E = np.asarray(T_a, np.float64) @ np.linalg.inv(np.asarray(T_b, np.float64))
+    return float(np.degrees(np.arccos(np.clip((np.trace(E[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def recall_np(T, T_gt, rot_thresh_deg, trans_thresh):
+    from saccot_tpu_torch.evaluation.metrics import registration_recall
+
+    return registration_recall(zip(T, T_gt), rot_thresh_deg, trans_thresh)
+
+
+def gloo_cuda_probe(dev):
+    """Which collectives a gloo group runs on CUDA tensors itself (True) or
+    refuses (the error's first line)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    x = torch.ones(4, device=dev)
+    for name, call in (
+        ("all_reduce", lambda: dist.all_reduce(x.clone())),
+        ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x)),
+        ("all_gather_into_tensor",
+         lambda: dist.all_gather_into_tensor(torch.empty(8, device=dev), x)),
+    ):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = True
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:120]
+    return out
+
+
+def phase9_rank(fast, exact, kitti, tdm):
+    """One rank of phase 9 (spawned by `run_ranks`, which has already joined
+    the process group): DP, TP and SP runs; results and launch counts."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from saccot_tpu_torch.dist.mesh import axis_group, make_mesh
+    from saccot_tpu_torch.dist.sweep import make_sweep_fn
+    from saccot_tpu_torch.engine.sac_cot import register_batch_sp, register_batch_tp
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.utils.convert import KITTI_SEED, kitti_problem_batch, problem_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    backend = dist.get_backend()
+    out = dict(rank=dist.get_rank(), backend=backend, device=dev.index,
+               card=torch.cuda.get_device_name(dev))
+    if backend == "gloo":
+        out["gloo_cuda"] = gloo_cuda_probe(dev)
+    P, Q, _ = problem_batch(range(1000, 1128), device=dev, n=1000, outlier_ratio=0.8, noise=0.004)
+    dp = make_mesh(pairs=2)
+    for name, params in (("fast", fast), ("exact", exact)):
+        out[f"dp_{name}"] = make_sweep_fn(dp, params)(P, Q)
+    tp = make_mesh(pairs=1, hyp=2)
+    out["tp"] = register_batch_tp(P, Q, fast, axis_group(tp, "hyp"))
+    sp = make_mesh(pairs=1, corr=2)
+    g, r = axis_group(sp, "corr"), sp.get_local_rank("corr")
+
+    def shard(x):
+        n = x.shape[1] // 2
+        return x[:, r * n:(r + 1) * n].contiguous()
+
+    ring = dataclasses.replace(kitti, ring_compat=True)
+    PK, QK, _ = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1], device=dev)
+    PK, QK = shard(PK), shard(QK)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out["sp_ring"] = register_batch_sp(PK, QK, ring, g)
+    torch.cuda.synchronize()
+    out["sp_ring_launches"] = _build.launches()
+    reps = 3
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        register_batch_sp(PK, QK, ring, g)
+    torch.cuda.synchronize()
+    out["sp_ring_ms_per_pair"] = (time.perf_counter() - t0) * 1e3 / (reps * 2)
+    P3, Q3, _ = problem_batch(range(300, 332), device=dev, n=2048, outlier_ratio=0.9, noise=0.01)
+    P3, Q3 = shard(P3), shard(Q3)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out["sp_3dm"] = register_batch_sp(P3, Q3, tdm, g)
+    torch.cuda.synchronize()
+    out["sp_3dm_launches"] = _build.launches()
+    return out
+
+
 def main():
+    import numpy as np
     import torch
 
     # -- phase 1: the card ------------------------------------------------
@@ -134,11 +279,20 @@ def main():
     tau, sep = fast.compat_tau, fast.min_separation
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, counter):
+    def solve_cost(b, n, k):
+        # triples read, the point rows they name (at most 3K), r9 and t3 written
+        return SOLVE_OPS * b * k, 24 * b * k + 24 * b * min(n, 3 * k) + 48 * b * k
+
+    def score_cost(b, n, k):
+        return SCORE_OPS * b * k * n, 24 * b * n + 48 * b * k + 8 * b * k
+
+    def row(name, source, replaces, err, ms, plain_ms, counter, cost):
+        bound_ms, bound_by = bound(*cost)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         counter=counter, max_abs_err=err, ms=ms, plain_ms=plain_ms))
-        print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
+                         counter=counter, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
 
     # Degrees: rtol 1e-5, atol 1e-3 — the kernel sums each row in column
     # order, the plain version in torch's reduction order.
@@ -148,9 +302,18 @@ def main():
     row("compat_degrees", "saccot_tpu_torch/csrc/compat_degrees.cu",
         "saccot_tpu/kernels/compat.py:96", (deg - deg_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(P, Q, P, Q, fast)),
-        time_ms(lambda: kcompat.degrees_reference(P, Q, P, Q, fast)), "compat_degrees")
+        time_ms(lambda: kcompat.degrees_reference(P, Q, P, Q, fast)), "compat_degrees",
+        degrees_cost(128, 1000, 1000, same=True))
 
     _, anchors = ktri.topk_stable(deg_ref, A)
+    cands = 128 * A * B * (B - 1) // 2
+    anchor_in = 4 * 128 * 1000 * 6 + 8 * 128 * A + 12 * 128 * A * B
+    anchor_cost = {
+        "candidates": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 3) * cands,
+                       anchor_in + 4 * cands),
+        "topt": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 4) * cands,
+                 anchor_in + 20 * 128 * A * T),
+    }
     for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
         got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
         ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)
@@ -173,7 +336,7 @@ def main():
             "saccot_tpu/kernels/triangles.py:42", max(err_s, err_c),
             time_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)),
             time_ms(lambda: ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)),
-            f"anchor_topb_{mode}")
+            f"anchor_topb_{mode}", anchor_cost[mode])
 
     pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, exact, impl="plain")
     triples = pool.triples
@@ -185,7 +348,8 @@ def main():
     check(err <= 1e-4, f"solve3: r9/t3 differ by {err}")
     row("solve3", "saccot_tpu_torch/csrc/solve3.cu", "saccot_tpu/kernels/solve3.py:73", err,
         time_ms(lambda: ksolve.solve3(P, Q, triples)),
-        time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3")
+        time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
+        solve_cost(128, 1000, triples.shape[1]))
 
     _, counts = kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)
     _, counts_ref = kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q, fast.inlier_tau)
@@ -199,7 +363,8 @@ def main():
         float(diff.max().item()),
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q,
-                                                          fast.inlier_tau)), "score")
+                                                          fast.inlier_tau)), "score",
+        score_cost(128, 1000, r9_ref.shape[2]))
     print(f"phase 3 ok: counts identical for {same:.5f} of hypotheses", flush=True)
 
     # -- phase 4: the main path at the bench point ---------------------------
@@ -265,7 +430,8 @@ def main():
         "saccot_tpu/kernels/compat.py:180", (deg - deg_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(PK, QK, PK, QK, kp), reps=10),
         time_ms(lambda: kcompat.degrees_reference(PK, QK, PK, QK, kp), **big),
-        "compat_degrees_tri")
+        "compat_degrees_tri",
+        ((PAIR_OPS + 1) * 2 * 50000 * 49999 // 2, 4 * 2 * 50000 * 7))
     print(f"  compat_degrees two-sided kernel at the same shape: {two_sided_ms:.4f} ms, "
           f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g}", flush=True)
 
@@ -294,7 +460,8 @@ def main():
     row("anchor_topb_stream", "saccot_tpu_torch/csrc/anchor_topb_stream.cu",
         "saccot_tpu/kernels/triangles.py:201", err_s,
         time_ms(lambda: ktri.anchor_neighbors_stream(*sargs), reps=10),
-        time_ms(lambda: ktri.anchor_neighbors_reference(*sargs), **big), "anchor_topb_stream")
+        time_ms(lambda: ktri.anchor_neighbors_reference(*sargs), **big), "anchor_topb_stream",
+        ((PAIR_OPS + 1) * 2 * A * 50000, 4 * 2 * 50000 * 6 + 8 * 2 * A + 12 * 2 * A * B))
 
     # Candidate top-T: scores within 1e-5 of the plain version (sums of three
     # scores), node ids equal off ties; bit-identical to the fused kernel's
@@ -315,7 +482,8 @@ def main():
     row("candidate_topt", "saccot_tpu_torch/csrc/candidate_topt.cu",
         "saccot_tpu/kernels/triangles.py:378", err_c,
         time_ms(lambda: ktri.candidate_topt(*cargs)),
-        time_ms(lambda: ktri.candidate_topt_reference(*cargs)), "candidate_topt")
+        time_ms(lambda: ktri.candidate_topt_reference(*cargs)), "candidate_topt",
+        ((PAIR_OPS + 4) * 2 * A * B * (B - 1) // 2, 2 * A * B * 36 + 20 * 2 * A * T))
 
     # Solve and score at N=50,000 (the TPU streamed the solve above its VMEM
     # cap; the direct-index kernels take any N), tolerances as in phase 3.
@@ -328,7 +496,8 @@ def main():
     row("solve3_large_n", "saccot_tpu_torch/csrc/solve3.cu",
         "saccot_tpu/kernels/solve3.py:124", err,
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
-        time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3")
+        time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3",
+        solve_cost(2, 50000, ktrip.shape[1]))
     _, counts = kscore.score_hypotheses(r9_ref, t3_ref, PK, QK, kp.inlier_tau)
     _, counts_ref = kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK, kp.inlier_tau)
     diff = (counts - counts_ref).abs()
@@ -340,29 +509,31 @@ def main():
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, PK, QK, kp.inlier_tau),
                 reps=10),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK,
-                                                          kp.inlier_tau), **big), "score")
+                                                          kp.inlier_tau), **big), "score",
+        score_cost(2, 50000, r9_ref.shape[2]))
     print(f"phase 6 ok: score counts identical for {same:.5f} of hypotheses", flush=True)
 
     # -- phase 7: register_batch at the kitti configuration --------------------
-    rot_deg, trans_m = KITTI_CRITERION
+    rot_deg_k, trans_m = KITTI_CRITERION
     planted = 50000 - round(50000 * 0.7)
     kit_launches = {k: 0 for k in _build.LAUNCHES}
+    kitti_results = {}
     for name, params in (("exact", kp), ("fast", kfast)):
         _build.reset_launches()
-        res = register_batch(PK, QK, params)
+        res = kitti_results[name] = register_batch(PK, QK, params)
         torch.cuda.synchronize()
         launched = _build.launches()
         for k, v in launched.items():
             kit_launches[k] += v
         check(bool(torch.isfinite(res.T).all()) and res.T.shape == (2, 4, 4),
               f"kitti {name}: non-finite or misshapen transforms")
-        rec = recall(res, TK, rot_deg, trans_m)
+        rec = recall(res, TK, rot_deg_k, trans_m)
         inl = res.num_inliers.tolist()
         check(rec == 1.0, f"kitti {name}: recall {rec} < 1.0")
         check(all(abs(n - planted) <= 0.01 * planted for n in inl),
               f"kitti {name}: inliers {inl} not within 1% of {planted}")
         res_p = register_batch(PK, QK, params, impl="plain")
-        rec_p = recall(res_p, TK, rot_deg, trans_m)
+        rec_p = recall(res_p, TK, rot_deg_k, trans_m)
         check(rec_p == rec, f"kitti {name}: plain recall {rec_p}, kernels {rec}")
         ms = {}
         for impl, reps in (("kernel", 3), ("plain", 1)):
@@ -382,6 +553,143 @@ def main():
             r["launches"] = kit_launches[r.pop("counter")]
             check(r["launches"] > 0, f"{r['name']} was not launched by register_batch at kitti")
     print("phase 7 ok", flush=True)
+
+    # -- phase 8: the ring step and the direct-form degree route ---------------
+    from saccot_tpu_torch.kernels import ring_compat as kring
+
+    def ring_sums(Pb, Qb, params, d, step):
+        """Degrees of every row block summed over all d column blocks, each
+        row block visiting the columns in its ring order."""
+        n = Pb.shape[1] // d
+        blocks = [kring.pack_block(Pb[:, r * n:(r + 1) * n], Qb[:, r * n:(r + 1) * n])
+                  for r in range(d)]
+        out = []
+        for r in range(d):
+            acc = torch.zeros((Pb.shape[0], n), dtype=torch.float32, device=dev)
+            for s in range(d):
+                src = (r - s) % d
+                step(blocks[r], blocks[src], acc, r * n, src * n, params)
+            out.append(acc)
+        return torch.cat(out, dim=1), blocks
+
+    # Kitti shapes: rtol 1e-5 / atol 2e-3 as phase 6 (50,000-term sums in
+    # another order); the kernel sums in a fixed order, so two runs agree bit
+    # for bit.
+    deg_tri = kcompat.degrees_tri(PK, QK, kp)
+    ring_err = 0.0
+    for d in (2, 4):
+        got, _ = ring_sums(PK, QK, kp, d, kring.ring_degrees_step)
+        ref, _ = ring_sums(PK, QK, kp, d, kring.ring_degrees_step_reference)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-3)
+        torch.testing.assert_close(got, deg_tri, rtol=1e-5, atol=2e-3)
+        check(torch.equal(got, ring_sums(PK, QK, kp, d, kring.ring_degrees_step)[0]),
+              f"ring_degrees at d={d}: two runs differ")
+        err = (got - ref).abs().max().item()
+        ring_err = err if d == 2 else ring_err
+        print(f"  ring sums at kitti, d={d}: max |kernel - plain| {err:.3g}, "
+              f"max |kernel - tri| {(got - deg_tri).abs().max().item():.3g}", flush=True)
+    # Bench shapes, d = 2: the ring sums against the direct-form route.
+    _build.reset_launches()
+    direct = kcompat.degrees(P, Q, P, Q, fast, mxu=False)
+    check(_build.launches()["compat_degrees_direct"] == 1
+          and _build.launches()["compat_degrees"] == 0, "degrees(mxu=False) took another route")
+    torch.testing.assert_close(direct, kcompat.degrees_reference(P, Q, P, Q, fast),
+                               rtol=1e-5, atol=1e-3)
+    bench_ring, bench_blocks = ring_sums(P, Q, fast, 2, kring.ring_degrees_step)
+    torch.testing.assert_close(bench_ring, direct, rtol=1e-5, atol=1e-3)
+    # The direct route at the shape SP hands it in phase 9 (d): the 3DMatch
+    # point's second half of the rows against all 2,048 columns.
+    h = 1024
+    sp_args = (P3[:, h:], Q3[:, h:], P3, Q3, tdm)
+    sp_direct = kcompat.degrees(*sp_args, row_offset=h, mxu=False)
+    sp_ref = kcompat.degrees_reference(*sp_args, row_offset=h)
+    torch.testing.assert_close(sp_direct, sp_ref, rtol=1e-5, atol=1e-3)
+    row("compat_degrees_direct", "saccot_tpu_torch/csrc/compat_degrees.cu",
+        "saccot_tpu/kernels/compat.py:53", (sp_direct - sp_ref).abs().max().item(),
+        time_ms(lambda: kcompat.degrees(*sp_args, row_offset=h, mxu=False)),
+        time_ms(lambda: kcompat.degrees_reference(*sp_args, row_offset=h)),
+        "compat_degrees_direct", degrees_cost(32, 2048 - h, 2048))
+    # One step at kitti d = 2 (25,000 x 25,000 per pair) and at the bench, d = 2.
+    _, kblocks = ring_sums(PK, QK, kp, 2, kring.ring_degrees_step)
+    scratch = torch.zeros((2, 25000), device=dev)
+    step_args = (kblocks[0], kblocks[1], scratch, 0, 25000, kp)
+    bench_scratch = torch.zeros((128, 500), device=dev)
+    bench_step = (bench_blocks[0], bench_blocks[1], bench_scratch, 0, 500, fast)
+    bench_ms = time_ms(lambda: kring.ring_degrees_step(*bench_step))
+    bench_plain_ms = time_ms(lambda: kring.ring_degrees_step_reference(*bench_step))
+    row("ring_degrees", "saccot_tpu_torch/csrc/ring_degrees.cu",
+        "saccot_tpu/kernels/ring_compat.py:53", ring_err,
+        time_ms(lambda: kring.ring_degrees_step(*step_args), reps=10),
+        time_ms(lambda: kring.ring_degrees_step_reference(*step_args), **big), "ring_degrees",
+        (PAIR_OPS * 2 * 25000 * 25000, 2 * 28 * 2 * 25000 + 8 * 2 * 25000))
+    print(f"  ring_degrees step at the bench, d=2: kernel {bench_ms:.4f} ms, "
+          f"plain {bench_plain_ms:.4f} ms, bound {bound(PAIR_OPS * 128 * 500 * 500, 0)[0]:.4f} "
+          "ms (operations)", flush=True)
+    print("phase 8 ok", flush=True)
+
+    # -- phase 9: the distributed estimator on two ranks --------------------
+    from saccot_tpu_torch.dist.local import run_ranks
+
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase9_rank, 2, backend, fast, exact, KITTI_PARAMS, tdm, timeout=600)
+    print(f"  {backend}, world size 2, ranks on " + ", ".join(
+        f"rank {r['rank']}: cuda:{r['device']} {r['card']}" for r in ranks)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if backend == "gloo":
+        print(f"  gloo on CUDA tensors: {ranks[0]['gloo_cuda']}", flush=True)
+    # (a) DP: every pair as in the single-rank batch, inliers within 1 and
+    # rotation within 0.05 deg (the refine's torch sums may differ in order).
+    for name in ("fast", "exact"):
+        one = results[name]
+        T1 = one.T.cpu().numpy().astype(np.float64)
+        for r in ranks:
+            dp = r[f"dp_{name}"]
+            check(np.abs(dp.num_inliers.astype(np.int64)
+                         - one.num_inliers.cpu().numpy()).max() <= 1,
+                  f"DP {name}: inliers differ by more than 1")
+            worst = max(rot_deg(dp.T[b], T1[b]) for b in range(128))
+            check(worst < 0.05, f"DP {name}: rotation {worst} deg from the single rank")
+        print(f"  (a) DP {name}: 128 pairs, worst rotation {worst:.3g} deg from one rank",
+              flush=True)
+    # (b) TP: the transform bit for bit.
+    for r in ranks:
+        check(np.array_equal(r["tp"].T, results["fast"].T.cpu().numpy()),
+              "TP: transforms differ from the single rank")
+    print("  (b) TP fast: T bit-identical to one rank on both ranks", flush=True)
+    # (c) SP with the ring at kitti.
+    T_one = kitti_results["exact"].T.cpu().numpy().astype(np.float64)
+    for r in ranks:
+        sp = r["sp_ring"]
+        rec = recall_np(sp.T, TK, rot_deg_k, trans_m)
+        check(rec == 1.0, f"SP ring: recall {rec}")
+        check(all(abs(int(n) - planted) <= 0.01 * planted for n in sp.num_inliers),
+              f"SP ring: inliers {sp.num_inliers} not within 1% of {planted}")
+        worst = max(rot_deg(sp.T[b], T_one[b]) for b in range(2))
+        check(worst < 0.1, f"SP ring: rotation {worst} deg from the single rank")
+        check(r["sp_ring_launches"]["ring_degrees"] == 2,
+              f"SP ring: {r['sp_ring_launches']['ring_degrees']} ring steps, want 2")
+    print(f"  (c) SP ring kitti: recall 1.0, inliers {ranks[0]['sp_ring'].num_inliers.tolist()}, "
+          f"worst rotation {worst:.3g} deg from one rank, "
+          f"{max(r['sp_ring_ms_per_pair'] for r in ranks):.3f} ms/pair"
+          + (" (both ranks share one card)" if backend == "gloo" else ""), flush=True)
+    # (d) SP without the ring at the 3DMatch point.
+    for r in ranks:
+        rec = recall_np(r["sp_3dm"].T, T3, 15.0, 0.30)
+        check(abs(rec - rec_k) <= 1 / 32, f"SP 3DMatch: recall {rec}, one rank {rec_k}")
+        check(r["sp_3dm_launches"]["compat_degrees_direct"] == 1,
+              "SP 3DMatch: the direct-form degree route was not taken")
+    print(f"  (d) SP 3DMatch: recall {rec:.4f} (one rank {rec_k:.4f})", flush=True)
+    dist_launches = {k: sum(r[f"{case}_launches"][k] for r in ranks for case in
+                            ("sp_ring", "sp_3dm")) for k in _build.LAUNCHES}
+    print(f"  launches summed over ranks (SP runs): {dist_launches}", flush=True)
+    for r in rows:
+        if "counter" in r:
+            r["launches"] = dist_launches[r.pop("counter")]
+            check(r["launches"] > 0, f"{r['name']} was not launched by the distributed runs")
+    print("phase 9 ok", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -12,16 +12,19 @@ Subpackages
 - ``engine``   the estimator: compat degrees, triangle pool, Horn solve,
                scoring, `register_batch` / `register_pair`
 - ``kernels``  CUDA kernel wrappers, their plain versions, the build
-- ``utils``    numpy <-> torch conversion of inputs and results
+- ``dist``     DP / TP / SP over `torch.distributed` process groups, the
+               column-block ring, the sharded sweep, a local rank launcher
+- ``utils``    `SacCotParams`, numpy <-> torch conversion, SE(3) helpers
+- ``io``, ``evaluation``  synthetic problems and registration criteria
 
-The static configuration `SacCotParams` and the NumPy modules (synthetic
-problems, oracle, SE(3) helpers, metrics) are shared with `saccot_tpu`,
-which they import without importing JAX.
+The port imports nothing of `saccot_tpu`: the static configuration
+`SacCotParams` and the NumPy helpers it needs are its own copies, held
+equal to the JAX package's by `tests/test_torch_isolation.py`.
 """
 
 __version__ = "0.1.0"
 
-from saccot_tpu.utils.params import SacCotParams  # noqa: F401
 from saccot_tpu_torch.engine.sac_cot import (  # noqa: F401
-    RegistrationResult, register_batch, register_pair,
+    RegistrationResult, register_batch, register_batch_sp, register_batch_tp, register_pair,
 )
+from saccot_tpu_torch.utils.params import SacCotParams  # noqa: F401

@@ -1,0 +1,86 @@
+"""Process-group setup and the ("pairs", "hyp", "corr") device mesh.
+
+Port of `saccot_tpu/dist/mesh.py`. The mesh's axes carry the estimator's
+three parallelism dimensions, in the JAX package's layout order:
+
+  "pairs": data parallelism over independent scan pairs (the sweep axis),
+  "hyp":   the hypothesis pool sharded over ranks (TP),
+  "corr":  the correspondence axis of one registration problem (SP),
+           innermost, so the latency-bound collectives of one problem join
+           neighbouring ranks.
+
+The mesh is a `torch.distributed.device_mesh.DeviceMesh`; each axis's
+process group (`mesh.get_group(name)`) carries that axis's collectives.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+AXES = ("pairs", "hyp", "corr")
+
+
+def init_distributed(backend: Optional[str] = None) -> str:
+    """Join the process group named by the `env://` variables (MASTER_ADDR,
+    MASTER_PORT, RANK, WORLD_SIZE; LOCAL_RANK and LOCAL_WORLD_SIZE default to
+    RANK and WORLD_SIZE) and return its backend.
+
+    backend=None picks NCCL when every rank of this host has a card of its
+    own (rank LOCAL_RANK takes card LOCAL_RANK), else gloo: CPU tensors, or
+    one card shared by several ranks (rank-to-card as `torch.cuda`'s
+    current device says).
+    """
+    if dist.is_initialized():
+        return dist.get_backend()
+    rank = int(os.environ["RANK"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    if backend is None:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        backend = "nccl" if cards >= local_world else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(local_rank)
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return backend
+
+
+def make_mesh(pairs: int = 0, corr: int = 1, hyp: int = 1) -> DeviceMesh:
+    """A (pairs, hyp, corr) mesh over every rank of the default group.
+
+    pairs=0 means "all remaining ranks on the pairs axis". Rank r sits at
+    (r // (hyp * corr), r // corr % hyp, r % corr). Every rank must call it,
+    in the same order as its other group creations.
+    """
+    n = dist.get_world_size()
+    inner = corr * hyp
+    if corr < 1 or hyp < 1 or n % inner:
+        raise ValueError(f"corr*hyp={inner} must divide the world size {n}")
+    if pairs == 0:
+        pairs = n // inner
+    if pairs * inner != n:
+        raise ValueError(f"mesh {pairs}x{hyp}x{corr} does not cover the {n} ranks")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (pairs, hyp, corr), mesh_dim_names=AXES)
+
+
+def axis_size(mesh: DeviceMesh, name: str) -> int:
+    return mesh.size(AXES.index(name))
+
+
+def axis_group(mesh: DeviceMesh, name: str):
+    """The process group of one mesh axis, or None when the axis has size 1
+    (nothing is sharded over it)."""
+    return mesh.get_group(name) if axis_size(mesh, name) > 1 else None
+
+
+def local_batch_size(total: int, mesh: DeviceMesh, axis: str = "pairs") -> int:
+    size = axis_size(mesh, axis)
+    if total % size:
+        raise ValueError(f"batch {total} not divisible by mesh axis {axis}={size}")
+    return total // size

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu_torch.utils.params import SacCotParams
 
 # Elements of one [batch, rows, cols] block in `degrees` (~128 MB per f32 temp).
 _BLOCK_ELEMS = 2 ** 25

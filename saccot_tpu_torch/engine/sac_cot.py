@@ -10,6 +10,19 @@ package's `vmap` becomes the explicit leading batch axis of every tensor.
 (the CUDA kernels for CUDA tensors, their plain versions for CPU tensors),
 which pick their kernel by N (no cap); `impl="plain"` runs the plain
 PyTorch versions on any device.
+
+The sharded bodies (`_register_pair`'s `corr_axis` / `hyp_axis` branches
+in the JAX package) run over `torch.distributed` groups:
+- SP, `register_batch_sp`: each rank of `corr_group` holds [batch, n_loc]
+  correspondences; one all-gather of the points feeds the replicated pool
+  stage, while degree rows, scoring and the refine stay sharded with summed
+  counts and moments. The degree rows take the ring (`params.ring_compat`)
+  or the direct-form kernel against the gathered columns (`mxu=False`:
+  the rows are a slice, so the explicit i != j test on `row_offset + i` is
+  the one that matters);
+- TP, `register_batch_tp` (and `hyp_group` under SP): each rank solves and
+  scores K/d of the replicated pool; the champions are gathered in rank
+  order, so the first-maximum tie-break of one rank holds.
 """
 
 from __future__ import annotations
@@ -18,7 +31,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu_torch.dist.collectives import all_gather, all_reduce, group_rank, group_size
+from saccot_tpu_torch.dist.ring import degrees_ring
 from saccot_tpu_torch.engine import score as score_mod
 from saccot_tpu_torch.engine import triangles as tri_mod
 from saccot_tpu_torch.engine.svd3 import transform_from_rt, umeyama
@@ -26,14 +40,15 @@ from saccot_tpu_torch.kernels import compat as compat_k
 from saccot_tpu_torch.kernels import score as score_k
 from saccot_tpu_torch.kernels import solve3 as solve3_k
 from saccot_tpu_torch.kernels.triangles import MAX_NEIGHBORS
+from saccot_tpu_torch.utils.params import SacCotParams
 
 
 class RegistrationResult(NamedTuple):
     R: torch.Tensor            # [batch, 3, 3]
     t: torch.Tensor            # [batch, 3]
     T: torch.Tensor            # [batch, 4, 4]
-    inliers: torch.Tensor      # [batch, N] bool
-    num_inliers: torch.Tensor  # [batch] int32
+    inliers: torch.Tensor      # [batch, N] bool (the local shard under SP)
+    num_inliers: torch.Tensor  # [batch] int32 (global under SP)
     best_score: torch.Tensor   # [batch] float32 (pre-refinement hypothesis score)
     num_valid_triangles: torch.Tensor  # [batch] int32: valid entries in the pool
     success: torch.Tensor      # [batch] bool: at least one valid triangle existed
@@ -48,47 +63,82 @@ def _stages(impl: str):
     raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
 
 
-def register_batch(
+def _register_batch(
     P: torch.Tensor,
     Q: torch.Tensor,
     params: SacCotParams,
-    mask: Optional[torch.Tensor] = None,
-    impl: str = "kernel",
+    mask: Optional[torch.Tensor],
+    impl: str,
+    corr_group=None,
+    hyp_group=None,
 ) -> RegistrationResult:
-    """Register a batch of correspondence sets.
-
-    P, Q: [batch, N, 3] matched source/target points (row n of P matches row
-    n of Q); mask: optional [batch, N] validity of each correspondence.
-    """
+    """The estimator body. `corr_group`: P, Q, mask are this rank's shard of
+    the correspondence axis (SP); `hyp_group`: the pool is sliced over it
+    (TP). With neither, no collective runs."""
     degrees_fn, solve_fn, score_fn = _stages(impl)
     P = P.to(torch.float32)
     Q = Q.to(torch.float32)
-    batch, N, _ = P.shape
-    if P.is_cuda and impl == "kernel" and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS:
-        raise NotImplementedError(
-            f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernels hold the "
-            "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
-    m = (torch.ones((batch, N), dtype=torch.float32, device=P.device)
+    batch, n_loc, _ = P.shape
+    m = (torch.ones((batch, n_loc), dtype=torch.float32, device=P.device)
          if mask is None else mask.to(torch.float32))
     # None masks (not all-ones) let the kernels skip their mask reads.
     kmask = None if mask is None else m
 
-    deg = degrees_fn(P, Q, P, Q, params, mask_rows=kmask, mask_cols=kmask)
-    pool = tri_mod.triangle_pool_from_points(P, Q, deg, params, mask=kmask, impl=impl)
-    r9, t3 = solve_fn(P, Q, pool.triples)
-    scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring)
+    if corr_group is None:
+        P_full, Q_full, kmask_full = P, Q, kmask
+        deg = degrees_fn(P, Q, P, Q, params, mask_rows=kmask, mask_cols=kmask)
+    else:
+        # One small all-gather of raw points; everything quadratic stays sharded.
+        P_full, Q_full = all_gather(P, corr_group, dim=1), all_gather(Q, corr_group, dim=1)
+        kmask_full = None if kmask is None else all_gather(kmask, corr_group, dim=1)
+        if params.ring_compat:
+            deg = degrees_ring(P, Q, params, corr_group, mask_loc=kmask, impl=impl)
+        else:
+            deg = degrees_fn(P, Q, P_full, Q_full, params,
+                             row_offset=group_rank(corr_group) * n_loc,
+                             mask_rows=kmask, mask_cols=kmask_full, mxu=False)
+        deg = all_gather(deg, corr_group, dim=1)
+    N = P_full.shape[1]
+    if P.is_cuda and impl == "kernel" and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS:
+        raise NotImplementedError(
+            f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernels hold the "
+            "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
 
-    scores = torch.where(pool.valid, scores, -1.0)
+    pool = tri_mod.triangle_pool_from_points(P_full, Q_full, deg, params, mask=kmask_full,
+                                             impl=impl, anchor_group=corr_group)
+    triples, hyp_valid = pool.triples, pool.valid
+    if hyp_group is not None:
+        d_h = group_size(hyp_group)
+        K = pool.scores.shape[1]
+        if K % d_h:
+            raise ValueError(f"max_hypotheses={K} must be divisible by the hyp group size {d_h}")
+        k0 = group_rank(hyp_group) * (K // d_h)
+        triples = triples[:, k0:k0 + K // d_h].contiguous()
+        hyp_valid = hyp_valid[:, k0:k0 + K // d_h]
+    r9, t3 = solve_fn(P_full, Q_full, triples)
+    scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring,
+                         group=corr_group)
+
+    scores = torch.where(hyp_valid, scores, -1.0)
     best = torch.argmax(scores, dim=1)                    # first maximum
     best_score = torch.gather(scores, 1, best[:, None])[:, 0]
     Rb = torch.gather(r9, 2, best[:, None, None].expand(batch, 9, 1)).reshape(batch, 3, 3)
     tb = torch.gather(t3, 2, best[:, None, None].expand(batch, 3, 1))[..., 0]
+    if hyp_group is not None:
+        # Champions of every slice, gathered in rank order: the argmax over
+        # them keeps the first maximum of the whole pool.
+        g_scores = all_gather(best_score[None], hyp_group, dim=0)   # [d_h, batch]
+        g_R = all_gather(Rb[None], hyp_group, dim=0)
+        g_t = all_gather(tb[None], hyp_group, dim=0)
+        g_best = torch.argmax(g_scores, dim=0)
+        rows = torch.arange(batch, device=P.device)
+        best_score, Rb, tb = g_scores[g_best, rows], g_R[g_best, rows], g_t[g_best, rows]
 
     inl = score_mod.inlier_mask(Rb, tb, P, Q, params.inlier_tau, mask=m)
     for _ in range(params.refine_iters):
         w = inl.to(torch.float32) * m
-        n = w.sum(dim=1)
-        Rf, tf = umeyama(P, Q, w=w)
+        n = all_reduce(w.sum(dim=1), corr_group)
+        Rf, tf = umeyama(P, Q, w=w, group=corr_group)
         keep = n >= 3.0  # keep the previous fit when < 3 inliers
         Rb = torch.where(keep[:, None, None], Rf, Rb)
         tb = torch.where(keep[:, None], tf, tb)
@@ -104,11 +154,26 @@ def register_batch(
         t=tb,
         T=transform_from_rt(Rb, tb),
         inliers=inl,
-        num_inliers=inl.sum(dim=1, dtype=torch.int32),
+        num_inliers=all_reduce(inl.sum(dim=1, dtype=torch.int32), corr_group),
         best_score=best_score,
         num_valid_triangles=pool.valid.sum(dim=1, dtype=torch.int32),
         success=success,
     )
+
+
+def register_batch(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    params: SacCotParams,
+    mask: Optional[torch.Tensor] = None,
+    impl: str = "kernel",
+) -> RegistrationResult:
+    """Register a batch of correspondence sets.
+
+    P, Q: [batch, N, 3] matched source/target points (row n of P matches row
+    n of Q); mask: optional [batch, N] validity of each correspondence.
+    """
+    return _register_batch(P, Q, params, mask, impl)
 
 
 def register_pair(
@@ -123,3 +188,38 @@ def register_pair(
     res = register_batch(P[None], Q[None], params,
                          mask=None if mask is None else mask[None], impl=impl)
     return RegistrationResult(*(x[0] for x in res))
+
+
+def register_batch_sp(
+    P_loc: torch.Tensor,
+    Q_loc: torch.Tensor,
+    params: SacCotParams,
+    corr_group,
+    mask_loc: Optional[torch.Tensor] = None,
+    hyp_group=None,
+    impl: str = "kernel",
+) -> RegistrationResult:
+    """Correspondence-sharded (SP) estimator, called on every rank of
+    `corr_group` with its [batch, n_loc, 3] shard (rank r holds global
+    correspondences r * n_loc ... (r + 1) * n_loc - 1).
+
+    `inliers` is the local shard; every other field is global and the same
+    on every rank. `hyp_group` also shards the hypothesis pool (TP).
+    """
+    return _register_batch(P_loc, Q_loc, params, mask_loc, impl, corr_group=corr_group,
+                           hyp_group=hyp_group)
+
+
+def register_batch_tp(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    params: SacCotParams,
+    hyp_group,
+    mask: Optional[torch.Tensor] = None,
+    impl: str = "kernel",
+) -> RegistrationResult:
+    """Hypothesis-sharded (TP) estimator: every rank of `hyp_group` holds
+    the whole batch, solves and scores its K/d slice of the pool, and the
+    best hypothesis is reduced over the group. Every field is replicated.
+    """
+    return _register_batch(P, Q, params, mask, impl, hyp_group=hyp_group)

@@ -5,7 +5,9 @@ Port of `saccot_tpu/engine/score.py`. Scoring modes (params.scoring):
   "weighted": sum_n max(0, 1 - |R p_n + t - q_n| * (1/tau))
 `inlier_mask` keeps the JAX function's `|.| < tau` test. Residuals are
 formed elementwise as ((t - q) + r0 p0) + r1 p1 + r2 p2, the order of the
-scoring kernel (`csrc/score.cu`), never through a matmul.
+scoring kernel (`csrc/score.cu`), never through a matmul. With a `group`
+the points are one shard of the correspondence axis, and the per-hypothesis
+counts and weights are summed over the group (the JAX package's `psum`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from saccot_tpu_torch.dist.collectives import all_reduce
 
 
 def _residual(R: torch.Tensor, t: torch.Tensor, P: torch.Tensor,
@@ -39,6 +43,7 @@ def score_hypotheses(
     mask: Optional[torch.Tensor] = None,
     mode: str = "count",
     block_k: int = 256,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score K hypotheses per batch element against its N correspondences.
 
@@ -64,9 +69,18 @@ def score_hypotheses(
             weights.append(wgt.sum(dim=-1))
     counts = torch.cat(counts, dim=1) if counts else P.new_zeros((batch, 0), dtype=torch.int32)
     if mode == "weighted":
-        scores = torch.cat(weights, dim=1) if weights else P.new_zeros((batch, 0))
+        weights = torch.cat(weights, dim=1) if weights else P.new_zeros((batch, 0))
     else:
-        scores = counts.to(torch.float32)
+        weights = None
+    return reduce_scores(counts, weights, group)
+
+
+def reduce_scores(counts: torch.Tensor, weights: Optional[torch.Tensor],
+                  group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, counts) from one shard's counts (and weights, in "weighted"
+    mode), summed over `group`. Integer counts sum exactly in any order."""
+    counts = all_reduce(counts, group)
+    scores = counts.to(torch.float32) if weights is None else all_reduce(weights, group)
     return scores, counts
 
 

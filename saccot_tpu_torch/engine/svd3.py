@@ -4,7 +4,9 @@ Port of `saccot_tpu/engine/svd3.py` (its "quat" method). The quaternion
 iteration runs in structure-of-arrays form over whatever batch shape its
 inputs share, in exactly the order of the JAX function and of the fused CUDA
 solve (`csrc/solve3.cu`). Sums over points are elementwise products and
-sums, never a matmul, so TF32 cannot touch them.
+sums, never a matmul, so TF32 cannot touch them. With a `group` the point
+axis is sharded over it and every moment is summed over the group, as the
+JAX function's `axis_name` psums them.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from saccot_tpu_torch.dist.collectives import all_reduce
 
 
 def quaternion_from_cross_covariance(Sxx, Sxy, Sxz, Syx, Syy, Syz, Szx, Szy, Szz):
@@ -109,23 +113,28 @@ def umeyama(
     p: torch.Tensor,
     q: torch.Tensor,
     w: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted rigid alignment, batched over leading dims.
 
     Minimises sum_i w_i |R p_i + t - q_i|^2. p, q: [..., M, 3]; w: [..., M]
     (default uniform). An all-zero weight row gives a finite rotation.
-    Returns R [..., 3, 3], t [..., 3].
+    `group`: the M axis is this rank's shard; the moments are summed over
+    the group, so every rank gets the global fit. Returns R [..., 3, 3],
+    t [..., 3].
     """
     if w is None:
         w = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
     w = w.to(p.dtype)
-    wsum = torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)      # [..., 1]
-    pbar = (w[..., None] * p).sum(dim=-2) / wsum                    # [..., 3]
-    qbar = (w[..., None] * q).sum(dim=-2) / wsum
+    wsum = torch.clamp_min(all_reduce(w.sum(dim=-1, keepdim=True), group), 1e-9)  # [..., 1]
+    pbar = all_reduce((w[..., None] * p).sum(dim=-2), group) / wsum               # [..., 3]
+    qbar = all_reduce((w[..., None] * q).sum(dim=-2), group) / wsum
     pc = p - pbar[..., None, :]
     qc = q - qbar[..., None, :]
     wpc = w[..., None] * pc
     H = [(wpc[..., a] * qc[..., c]).sum(dim=-1) for a in range(3) for c in range(3)]
+    if group is not None:
+        H = all_reduce(torch.stack(H, dim=-1), group).unbind(-1)
     r = rotation_entries_from_quaternion(*quaternion_from_cross_covariance(*H))
     R = torch.stack(r, dim=-1).reshape(*r[0].shape, 3, 3)
     t = torch.stack(

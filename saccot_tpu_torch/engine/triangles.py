@@ -19,6 +19,11 @@ kernel route (`impl="pallas"`):
 Every top-k here is a stable descending sort, `lax.top_k`'s order. Where the
 JAX package asks for `approx_max_k` (approx_topk=True with A*T > K) the port
 takes the exact top-K. Node ids are int64 throughout.
+
+Under correspondence sharding (`anchor_group`) the per-anchor work of the
+fast config is split over the group: each rank scores a contiguous slice of
+A/d anchors and one all-gather in rank order rebuilds the unsharded pool
+exactly (`saccot_tpu/engine/triangles.py:130-135, 221-236`).
 """
 
 from __future__ import annotations
@@ -28,10 +33,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu_torch.dist.collectives import all_gather, group_rank, group_size
 from saccot_tpu_torch.engine.compat import pair_distances, pair_score
 from saccot_tpu_torch.kernels import triangles as tri_kernels
 from saccot_tpu_torch.kernels.triangles import topk_stable
+from saccot_tpu_torch.utils.params import SacCotParams
 
 
 class TrianglePool(NamedTuple):
@@ -49,13 +55,17 @@ def triangle_pool_from_points(
     params: SacCotParams,
     mask: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    anchor_group=None,
 ) -> TrianglePool:
     """Degrees and points [batch, N, 3] in, ranked triangles out.
 
     impl="kernel" goes through the kernel wrappers of `kernels.triangles`
     (the CUDA kernels on a card, their plain versions on the CPU);
     impl="plain" calls the plain versions on any device. Both take the
-    route that N selects.
+    route that N selects. `anchor_group`: the group the correspondence axis
+    is sharded over; with `per_anchor_candidates > 0` and A divisible by its
+    size d > 1 the anchors are split over it, every other route stays
+    replicated.
     """
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
@@ -65,8 +75,13 @@ def triangle_pool_from_points(
     B = min(params.neighbors_per_anchor, N - 1)
     T = min(params.per_anchor_candidates, B * (B - 1) // 2)
     _, anchors = topk_stable(deg, A)                               # [batch, A]
-    anchor_mask = None if mask is None else torch.gather(mask, 1, anchors)
-    args = (P, Q, anchors, B, params.compat_tau, params.min_separation)
+    d = group_size(anchor_group)
+    shard = params.per_anchor_candidates > 0 and d > 1 and A % d == 0
+    # Each rank's contiguous slice of the anchors when sharded, else all.
+    mine = (anchors[:, group_rank(anchor_group) * (A // d):][:, :A // d] if shard
+            else anchors)
+    anchor_mask = None if mask is None else torch.gather(mask, 1, mine)
+    args = (P, Q, mine, B, params.compat_tau, params.min_separation)
     kw = dict(mask=mask, anchor_mask=anchor_mask)
     if N > tri_kernels.MAX_N_FUSED:
         # Stream the neighbours, then score candidates from their coordinates.
@@ -74,17 +89,24 @@ def triangle_pool_from_points(
                           else tri_kernels.anchor_neighbors_stream)(*args, **kw)
         if params.per_anchor_candidates > 0:
             nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
-            cand_s, cand_j, cand_k = (
-                tri_kernels.candidate_topt_reference if plain else tri_kernels.candidate_topt)(
+            cand = (tri_kernels.candidate_topt_reference if plain else tri_kernels.candidate_topt)(
                 nbr_s, nbr_idx, nbr_p, nbr_q, T, params.compat_tau, params.min_separation)
-            return _pool_from_preranked(anchors, cand_s, cand_j, cand_k, params)
+            return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
+                                        params)
         return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params)
     fn = tri_kernels.anchor_neighbors_reference if plain else tri_kernels.anchor_neighbors
     if params.per_anchor_candidates > 0:
-        _, _, cand_s, cand_j, cand_k = fn(*args, **kw, top_t=T)
-        return _pool_from_preranked(anchors, cand_s, cand_j, cand_k, params)
+        cand = fn(*args, **kw, top_t=T)[2:]
+        return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
+                                    params)
     nbr_s, nbr_idx, cand = fn(*args, **kw, emit_candidates=True)
     return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N)
+
+
+def _gather_anchors(arrs, shard: bool, group):
+    """Each rank's [batch, A/d, ...] anchor-slice results, all-gathered in
+    rank order back to [batch, A, ...] when the anchors were sharded."""
+    return tuple(all_gather(a, group, dim=1) for a in arrs) if shard else tuple(arrs)
 
 
 def _rank_neighbor_candidates(

@@ -10,7 +10,8 @@ unchanged one is reused.
 Every entry point returns `cudaGetLastError()` right after its launch;
 `check` raises on a non-zero code. `LAUNCHES` holds one plain integer per
 kernel (three for the fused anchor kernel: its neighbour, candidate and top-T
-modes), which a wrapper bumps exactly where it launches its kernel.
+modes; two for the two-sided degree kernel: its own route and the direct-form
+one), which a wrapper bumps exactly where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ NVCC_FLAGS = [
 
 LAUNCHES: Dict[str, int] = {
     "compat_degrees": 0,
+    "compat_degrees_direct": 0,   # the same kernel on the direct-form route (mxu=False)
     "compat_degrees_tri": 0,      # symmetric route, N > 2048
     "anchor_topb": 0,             # neighbours only
     "anchor_topb_candidates": 0,  # + all B(B-1)/2 candidate scores
@@ -41,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "candidate_topt": 0,          # top-T candidates from gathered neighbours
     "solve3": 0,
     "score": 0,
+    "ring_degrees": 0,            # one ring step of the correspondence-sharded degrees
 }
 
 _P = ctypes.c_void_p
@@ -55,6 +58,7 @@ _SIGNATURES = {
     "saccot_candidate_topt": [_P] * 7 + [_I] * 4 + [_F, _F, _F, _P],
     "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
     "saccot_score": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
+    "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,14 +1,19 @@
 """Compatibility degrees: CUDA kernel wrappers and their plain PyTorch version.
 
-Two TPU kernels are replaced, and `degrees` routes between them as
+Three TPU kernels are replaced, and `degrees` routes between them as
 `saccot_tpu/kernels/compat.py::degrees_pallas` does:
   - `_degree_kernel_mxu` (two-sided) by `csrc/compat_degrees.cu`;
+  - `_degree_kernel` (the direct form, `mxu=False`) by the same
+    `csrc/compat_degrees.cu`: it already differences coordinates directly and
+    tests i != j on `row_offset + i`, so the TPU's split-bf16 Gram (a
+    TPU-only trick) and the direct form collapse into one CUDA kernel. Its
+    launches are counted apart (`compat_degrees_direct`);
   - `_degree_kernel_mxu_tri` (symmetric: the rows are the columns, row offset
     0, one mask for both, R > `TRI_MIN_ROWS`) by `csrc/compat_degrees_tri.cu`,
     which evaluates each unordered pair once.
 For CUDA tensors `degrees` launches a kernel; for CPU tensors it runs
 `degrees_reference` (the blocked plain version, `engine/compat.degrees`, the
-plain version of both kernels). It never falls back from one to the other.
+plain version of every route). It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -18,12 +23,28 @@ from typing import Optional
 import numpy as np
 import torch
 
-from saccot_tpu.utils.params import SacCotParams
 from saccot_tpu_torch.engine import compat as compat_mod
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
+from saccot_tpu_torch.utils.params import SacCotParams
 
-degrees_reference = compat_mod.degrees
+
+def degrees_reference(
+    P_rows: torch.Tensor,
+    Q_rows: torch.Tensor,
+    P_cols: torch.Tensor,
+    Q_cols: torch.Tensor,
+    params: SacCotParams,
+    row_offset: int = 0,
+    mask_rows: Optional[torch.Tensor] = None,
+    mask_cols: Optional[torch.Tensor] = None,
+    mxu: Optional[bool] = None,
+) -> torch.Tensor:
+    """The plain version of every route of `degrees` (`engine.compat.degrees`);
+    `mxu` picks a kernel, so it changes nothing here."""
+    return compat_mod.degrees(P_rows, Q_rows, P_cols, Q_cols, params, row_offset=row_offset,
+                              mask_rows=mask_rows, mask_cols=mask_cols)
+
 
 # The symmetric route is taken above this many rows (the reference's TR_MXU).
 TRI_MIN_ROWS = 2048
@@ -48,16 +69,22 @@ def degrees(
     row_offset: int = 0,
     mask_rows: Optional[torch.Tensor] = None,
     mask_cols: Optional[torch.Tensor] = None,
+    mxu: Optional[bool] = None,
 ) -> torch.Tensor:
     """deg [batch, R] of rows [batch, R, 3] against columns [batch, C, 3].
 
     Same contract as `engine.compat.degrees`; `row_offset` is the global index
-    of row 0 for the explicit i != j test.
+    of row 0 for the explicit i != j test. `mxu` as in `degrees_pallas`:
+    None or True route by shape (symmetric or two-sided kernel); False always
+    takes the direct two-sided kernel, never the symmetric one.
     """
     if not P_rows.is_cuda:
         return degrees_reference(P_rows, Q_rows, P_cols, Q_cols, params,
                                  row_offset=row_offset, mask_rows=mask_rows,
                                  mask_cols=mask_cols)
+    if mxu is False:
+        return _two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset, mask_rows,
+                          mask_cols, "compat_degrees_direct")
     if _is_symmetric(P_rows, Q_rows, P_cols, Q_cols, row_offset, mask_rows, mask_cols):
         return degrees_tri(P_rows, Q_rows, params, mask=mask_rows)
     return degrees_two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset=row_offset,
@@ -75,6 +102,13 @@ def degrees_two_sided(
     mask_cols: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`degrees` through `csrc/compat_degrees.cu` (CUDA tensors only)."""
+    return _two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset, mask_rows,
+                      mask_cols, "compat_degrees")
+
+
+def _two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset, mask_rows, mask_cols,
+               counter: str) -> torch.Tensor:
+    """Launch `csrc/compat_degrees.cu`, counted under `counter`."""
     batch, R, _ = P_rows.shape
     C = P_cols.shape[1]
     P_rows, Q_rows = f32_points(P_rows, batch, R), f32_points(Q_rows, batch, R)
@@ -91,8 +125,8 @@ def degrees_two_sided(
         float(params.compat_tau), float(np.float32(1.0 / params.compat_tau)),
         float(params.min_separation), stream_of(deg),
     )
-    _build.check(rc, "compat_degrees")
-    _build.LAUNCHES["compat_degrees"] += 1
+    _build.check(rc, counter)
+    _build.LAUNCHES[counter] += 1
     return deg
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from saccot_tpu_torch.engine import score as score_mod
+from saccot_tpu_torch.engine.score import reduce_scores
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
 
@@ -32,12 +33,13 @@ def score_hypotheses_reference(
     tau: float,
     mask: Optional[torch.Tensor] = None,
     mode: str = "count",
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: `engine.score.score_hypotheses` on the SoA layout."""
     batch, _, K = r9.shape
     R = r9.permute(0, 2, 1).reshape(batch, K, 3, 3)
     return score_mod.score_hypotheses(R, t3.permute(0, 2, 1), P, Q, tau,
-                                      mask=mask, mode=mode)
+                                      mask=mask, mode=mode, group=group)
 
 
 def score_hypotheses(
@@ -48,14 +50,17 @@ def score_hypotheses(
     tau: float,
     mask: Optional[torch.Tensor] = None,
     mode: str = "count",
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores [batch, K] f32, counts [batch, K] int32) of each hypothesis
     against its batch element's points P, Q [batch, N, 3]; a point with
-    mask <= 0 counts nothing."""
+    mask <= 0 counts nothing. With a `group`, P and Q are one shard of the
+    correspondence axis and the kernel's counts and weights are summed over
+    the group."""
     if mode not in ("count", "weighted"):
         raise ValueError(f"unknown scoring mode: {mode!r}")
     if not r9.is_cuda:
-        return score_hypotheses_reference(r9, t3, P, Q, tau, mask=mask, mode=mode)
+        return score_hypotheses_reference(r9, t3, P, Q, tau, mask=mask, mode=mode, group=group)
     batch, _, K = r9.shape
     N = P.shape[1]
     r9 = _check_hyp(r9, 9, batch, "r9")
@@ -76,4 +81,6 @@ def score_hypotheses(
     )
     _build.check(rc, "score")
     _build.LAUNCHES["score"] += 1
-    return scores, counts
+    if group is None:
+        return scores, counts
+    return reduce_scores(counts, scores if mode == "weighted" else None, group)

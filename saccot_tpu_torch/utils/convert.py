@@ -1,11 +1,12 @@
 """NumPy <-> torch at the estimator's boundary.
 
 The estimator has no learned weights: its state is the static
-`SacCotParams` (shared with the JAX package unchanged) and the
-correspondence arrays. Inputs are made with NumPy from a seed
-(`saccot_tpu/io/synthetic.py`, which imports no JAX), so both packages get
-the identical problems; results come back as NumPy for comparison and for
-the registration criteria of `saccot_tpu/evaluation/metrics.py`.
+`SacCotParams` (`utils/params.py`, the JAX package's fields and defaults)
+and the correspondence arrays. Inputs are made with NumPy from a seed
+(`io/synthetic.py`, which gives the JAX package's arrays bit for bit), so
+both packages get the identical problems; results come back as NumPy for
+comparison and for the registration criteria of `evaluation/metrics.py`.
+Tensors land on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
-from saccot_tpu.evaluation.metrics import registration_recall
-from saccot_tpu.io.synthetic import correspondence_problem
-from saccot_tpu.utils.params import SacCotParams
 from saccot_tpu_torch.engine.sac_cot import RegistrationResult
+from saccot_tpu_torch.evaluation.metrics import registration_recall
+from saccot_tpu_torch.io.synthetic import correspondence_problem
+from saccot_tpu_torch.utils.params import SacCotParams
 
 # The kitti run configuration (`saccot_tpu/cli/configs.py`, "kitti"; that
 # module imports JAX, so its values are restated here and a test holds them
@@ -32,7 +33,7 @@ KITTI_SEED = 500
 KITTI_CRITERION = (5.0, 0.6)   # rotation degrees, translation metres
 
 
-def to_torch(*arrays: np.ndarray, device="cpu") -> Tuple[torch.Tensor, ...]:
+def to_torch(*arrays: np.ndarray, device="cuda") -> Tuple[torch.Tensor, ...]:
     """NumPy arrays -> tensors on `device` (float arrays as float32)."""
     out = []
     for a in arrays:
@@ -48,7 +49,7 @@ def result_to_numpy(res: RegistrationResult) -> RegistrationResult:
     return RegistrationResult(*(x.detach().cpu().numpy() for x in res))
 
 
-def problem_batch(seeds: Iterable[int], device="cpu", **kwargs):
+def problem_batch(seeds: Iterable[int], device="cuda", **kwargs):
     """Planted problems `correspondence_problem(seed=s, **kwargs)` stacked:
     returns (P [batch, N, 3], Q [batch, N, 3]) on `device` and T_gt
     [batch, 4, 4] as NumPy float64."""
@@ -65,7 +66,7 @@ def recall(res: RegistrationResult, T_gt: np.ndarray, rot_thresh_deg: float,
     return registration_recall(zip(T, T_gt), rot_thresh_deg, trans_thresh)
 
 
-def kitti_problem_batch(seeds: Iterable[int], device="cpu", n: int = 50000):
+def kitti_problem_batch(seeds: Iterable[int], device="cuda", n: int = 50000):
     """The kitti configuration's problems, as `run_kitti_config`
     (`saccot_tpu/cli/runners.py`) makes them: 70% outliers, unit-blob
     problems with noise 0.05 / 30, n_points = 4 n, rotations up to 0.3 rad

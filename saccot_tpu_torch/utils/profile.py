@@ -20,9 +20,9 @@ import time
 
 import torch
 
-from saccot_tpu.utils.params import SacCotParams
 from saccot_tpu_torch.engine.sac_cot import register_batch
 from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch
+from saccot_tpu_torch.utils.params import SacCotParams
 
 _BENCH = SacCotParams(compat_tau=0.03, min_separation=0.05, inlier_tau=0.03, num_anchors=256,
                       neighbors_per_anchor=12, max_hypotheses=1024)

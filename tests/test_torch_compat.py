@@ -5,6 +5,7 @@ on the CPU); both sides get the same NumPy inputs. Kernel-vs-plain checks
 need a card and skip here.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -17,9 +18,10 @@ import torch
 from saccot_tpu.io.synthetic import correspondence_problem
 from saccot_tpu.kernels.compat import degrees_pallas
 from saccot_tpu.oracle import saccot as oracle
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu.utils.params import SacCotParams as JaxSacCotParams
 from saccot_tpu_torch.engine import compat as tcompat
 from saccot_tpu_torch.kernels import compat as kcompat
+from saccot_tpu_torch.utils.params import SacCotParams
 
 torch.set_num_threads(2)
 
@@ -31,6 +33,7 @@ PARAMS = SacCotParams(
     compat_tau=0.03, min_separation=0.05, inlier_tau=0.03,
     num_anchors=64, neighbors_per_anchor=10, max_hypotheses=256,
 )
+JAX_PARAMS = JaxSacCotParams(**dataclasses.asdict(PARAMS))
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +57,7 @@ def test_degrees_match_pallas(probs, masked):
     ref = np.stack([
         np.asarray(degrees_pallas(
             jnp.asarray(P[b, off:]), jnp.asarray(Q[b, off:]), jnp.asarray(P[b]),
-            jnp.asarray(Q[b]), PARAMS, row_offset=off,
+            jnp.asarray(Q[b]), JAX_PARAMS, row_offset=off,
             mask_rows=jnp.asarray(mask[b, off:]) if masked else None,
             mask_cols=jnp.asarray(mask[b]) if masked else None))
         for b in range(2)
@@ -79,7 +82,7 @@ def test_degrees_blocking_is_invisible(probs):
 
 def test_compat_matrix_matches_oracle():
     prob = correspondence_problem(seed=11, n=96, outlier_ratio=0.5, noise=0.004)
-    S_np = oracle.compat_scores(prob["P"], prob["Q"], PARAMS)
+    S_np = oracle.compat_scores(prob["P"], prob["Q"], JAX_PARAMS)
     S_t = tcompat.compat_matrix(torch.from_numpy(prob["P"])[None],
                                 torch.from_numpy(prob["Q"])[None], PARAMS)
     np.testing.assert_allclose(S_t[0].numpy(), S_np, atol=2e-4)
@@ -91,14 +94,17 @@ def test_compat_matrix_matches_oracle():
 
 
 def test_port_imports_no_jax():
-    """The port and its engine import neither JAX nor any GPU toolchain."""
+    """The port and its engine import neither JAX, the JAX package nor any GPU
+    toolchain."""
     code = (
         "import sys\n"
         "import saccot_tpu_torch, saccot_tpu_torch.engine, saccot_tpu_torch.kernels._build\n"
         "import saccot_tpu_torch.kernels.compat, saccot_tpu_torch.kernels.triangles\n"
         "import saccot_tpu_torch.kernels.solve3, saccot_tpu_torch.kernels.score\n"
         "import saccot_tpu_torch.utils.convert, saccot_tpu_torch.utils.profile\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]\n"
+        "import saccot_tpu_torch.kernels.ring_compat, saccot_tpu_torch.dist.ring\n"
+        "import saccot_tpu_torch.dist.mesh, saccot_tpu_torch.dist.sweep, saccot_tpu_torch.dist.local\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'triton', 'saccot_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -27,7 +27,7 @@ from saccot_tpu.kernels.triangles import (
     anchor_neighbors_stream_pallas, candidate_topt_pallas,
 )
 from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu.utils.params import SacCotParams as JaxSacCotParams
 from saccot_tpu_torch import register_batch
 from saccot_tpu_torch.engine import triangles as ttri
 from saccot_tpu_torch.kernels import compat as kcompat
@@ -37,6 +37,7 @@ from saccot_tpu_torch.utils.convert import (
     KITTI_CRITERION, KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch, recall,
     result_to_numpy,
 )
+from saccot_tpu_torch.utils.params import SacCotParams
 
 torch.set_num_threads(2)
 
@@ -52,6 +53,11 @@ FAST = dataclasses.replace(PARAMS, dedup_triangles=False, approx_topk=True,
 N, A, B, T = 300, 64, 10, 4
 
 
+def _jax(params):
+    """The JAX package's SacCotParams with the same field values."""
+    return JaxSacCotParams(**dataclasses.asdict(params))
+
+
 @pytest.fixture(scope="module")
 def case():
     """Two problems at N=300, a mask, each one's JAX degrees and anchors, and
@@ -64,7 +70,7 @@ def case():
     anchors, nbr_s, nbr_idx = [], [], []
     for b in range(2):
         Pj, Qj, mj = jnp.asarray(P[b]), jnp.asarray(Q[b]), jnp.asarray(mask[b])
-        deg = jcompat.degrees(Pj, Qj, Pj, Qj, PARAMS, mask_rows=mj, mask_cols=mj)
+        deg = jcompat.degrees(Pj, Qj, Pj, Qj, _jax(PARAMS), mask_rows=mj, mask_cols=mj)
         anc = lax.top_k(deg, A)[1]
         s, i = anchor_neighbors_stream_pallas(Pj, Qj, anc, B, PARAMS.compat_tau,
                                               PARAMS.min_separation, mask=mj,
@@ -106,7 +112,7 @@ def test_degrees_tri_route_matches_pallas(masked):
     got = kcompat.degrees(P, Q, P, Q, PARAMS, mask_rows=m, mask_cols=m)[0].numpy()
     Pj, Qj = jnp.asarray(prob["P"]), jnp.asarray(prob["Q"])
     mj = None if mask is None else jnp.asarray(mask)
-    ref = np.asarray(degrees_pallas(Pj, Qj, Pj, Qj, PARAMS, mask_rows=mj, mask_cols=mj))
+    ref = np.asarray(degrees_pallas(Pj, Qj, Pj, Qj, _jax(PARAMS), mask_rows=mj, mask_cols=mj))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-3)
     assert np.array_equal(kcompat.degrees_tri(P, Q, PARAMS, mask=m)[0].numpy(), got)
 
@@ -206,7 +212,7 @@ def test_pool_from_neighbors_matches_jax(case, dedup):
         ref = jtri._pool_from_neighbors(
             jnp.asarray(case["anchors"][b], jnp.int32), jnp.asarray(case["nbr_s"][b]),
             jnp.asarray(case["nbr_idx"][b], jnp.int32), jnp.asarray(P[b]), jnp.asarray(Q[b]),
-            params)
+            _jax(params))
         ref_map = {tuple(t): s for t, s, v in zip(np.asarray(ref.triples),
                                                   np.asarray(ref.scores),
                                                   np.asarray(ref.valid)) if v}
@@ -267,9 +273,9 @@ def test_register_batch_large_n_matches_jax(config):
     counts within 1, as tests/test_kernels.py holds its large-N path."""
     n = 4496
     params = PARAMS if config == "exact" else FAST
-    P, Q, T_gt = problem_batch([78], n=n, outlier_ratio=0.7, n_points=2 * n)
+    P, Q, T_gt = problem_batch([78], device="cpu", n=n, outlier_ratio=0.7, n_points=2 * n)
     got = result_to_numpy(register_batch(P, Q, params, impl="plain"))
-    ref = jregister_batch(jnp.asarray(P.numpy()), jnp.asarray(Q.numpy()), params,
+    ref = jregister_batch(jnp.asarray(P.numpy()), jnp.asarray(Q.numpy()), _jax(params),
                           compat_impl="pallas", score_impl="pallas", pool_impl="pallas",
                           solve_impl="pallas")
     E = got.T[0].astype(np.float64) @ np.linalg.inv(np.asarray(ref.T[0], np.float64))
@@ -284,11 +290,11 @@ def test_kitti_problems_match_the_runner():
     `kitti_problem_batch` builds `run_kitti_config`'s problems (here at a
     small n)."""
     cfg = CONFIGS["kitti"]
-    assert KITTI_PARAMS == cfg.params
+    assert dataclasses.asdict(KITTI_PARAMS) == dataclasses.asdict(cfg.params)
     assert KITTI_SEED == cfg.seed
     assert KITTI_CRITERION == (cfg.rot_thresh_deg, cfg.trans_thresh)
     n = 400
-    P, Q, T_gt = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1], n=n)
+    P, Q, T_gt = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1], device="cpu", n=n)
     assert P.shape == Q.shape == (2, n, 3) and P.dtype == torch.float32
     for s in range(2):
         prob = correspondence_problem(seed=cfg.seed + s, n=n, outlier_ratio=cfg.outlier_ratio,

@@ -16,6 +16,7 @@ from saccot_tpu.engine.sac_cot import register_batch as jregister_batch
 from saccot_tpu.io.synthetic import correspondence_problem
 from saccot_tpu.oracle import saccot as oracle
 from saccot_tpu.utils import se3np
+from saccot_tpu.utils.params import SacCotParams as JaxSacCotParams
 from saccot_tpu_torch import SacCotParams, register_batch, register_pair
 from saccot_tpu_torch.utils.convert import problem_batch, recall, result_to_numpy, to_torch
 
@@ -34,7 +35,7 @@ FAST = dataclasses.replace(EXACT, dedup_triangles=False, approx_topk=True,
 
 @pytest.fixture(scope="module")
 def batch():
-    return problem_batch(range(1000, 1003), n=300, outlier_ratio=0.8, noise=0.004)
+    return problem_batch(range(1000, 1003), device="cpu", n=300, outlier_ratio=0.8, noise=0.004)
 
 
 @pytest.mark.parametrize("config", ["exact", "fast"])
@@ -42,7 +43,8 @@ def test_register_batch_matches_jax(batch, config):
     params = EXACT if config == "exact" else FAST
     P, Q, T_gt = batch
     got = result_to_numpy(register_batch(P, Q, params))
-    ref = jregister_batch(jnp.asarray(P.numpy()), jnp.asarray(Q.numpy()), params,
+    ref = jregister_batch(jnp.asarray(P.numpy()), jnp.asarray(Q.numpy()),
+                          JaxSacCotParams(**dataclasses.asdict(params)),
                           compat_impl="pallas", score_impl="pallas", pool_impl="pallas",
                           solve_impl="pallas")
     for b in range(3):
@@ -62,8 +64,8 @@ def test_register_matches_oracle_exhaustive():
     params = SacCotParams(compat_tau=0.03, min_separation=0.05, inlier_tau=0.03,
                           num_anchors=n, neighbors_per_anchor=n - 1, max_hypotheses=512)
     prob = correspondence_problem(seed=11, n=n, outlier_ratio=0.5, noise=0.004)
-    want = oracle.sac_cot(prob["P"], prob["Q"], params)
-    P, Q = to_torch(prob["P"], prob["Q"])
+    want = oracle.sac_cot(prob["P"], prob["Q"], JaxSacCotParams(**dataclasses.asdict(params)))
+    P, Q = to_torch(prob["P"], prob["Q"], device="cpu")
     got = result_to_numpy(register_pair(P, Q, params))
     assert bool(got.success)
     E = got.T.astype(np.float64) @ np.linalg.inv(want["T"])
@@ -84,7 +86,7 @@ def test_register_pair_is_a_batch_of_one(batch):
 
 def test_mask_and_failure_flag():
     prob = correspondence_problem(seed=11, n=96, outlier_ratio=0.5, noise=0.004)
-    P, Q = to_torch(prob["P"], prob["Q"])
+    P, Q = to_torch(prob["P"], prob["Q"], device="cpu")
     mask = torch.ones(96)
     mask[48:] = 0
     res = register_pair(P, Q, EXACT, mask=mask)
@@ -95,7 +97,7 @@ def test_mask_and_failure_flag():
     Q = (rng.uniform(10, 20, size=(32, 3)) * np.array([1, 3, 7.0])).astype(np.float32)
     params = SacCotParams(compat_tau=1e-6, min_separation=0.01, inlier_tau=0.01,
                           num_anchors=32, neighbors_per_anchor=8, max_hypotheses=64)
-    res = register_pair(*to_torch(P, Q), params)
+    res = register_pair(*to_torch(P, Q, device="cpu"), params)
     assert not bool(res.success) and int(res.num_inliers) == 0
     assert int(res.num_valid_triangles) == 0
     np.testing.assert_array_equal(res.R.numpy(), np.eye(3))

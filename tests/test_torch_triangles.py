@@ -18,9 +18,10 @@ from saccot_tpu.engine import compat as jcompat
 from saccot_tpu.engine import triangles as jtri
 from saccot_tpu.io.synthetic import correspondence_problem
 from saccot_tpu.kernels.triangles import anchor_neighbors_pallas
-from saccot_tpu.utils.params import SacCotParams
+from saccot_tpu.utils.params import SacCotParams as JaxSacCotParams
 from saccot_tpu_torch.engine import triangles as ttri
 from saccot_tpu_torch.kernels import triangles as ktri
+from saccot_tpu_torch.utils.params import SacCotParams
 
 torch.set_num_threads(2)
 
@@ -36,6 +37,11 @@ FAST = dataclasses.replace(EXACT, dedup_triangles=False, approx_topk=True,
 N, A, B, T = 300, 64, 10, 4
 
 
+def _jax(params):
+    """The JAX package's SacCotParams with the same field values."""
+    return JaxSacCotParams(**dataclasses.asdict(params))
+
+
 @pytest.fixture(scope="module")
 def case():
     """Two problems, a mask, and each one's JAX degrees and anchors."""
@@ -47,7 +53,7 @@ def case():
     anchors = []
     for b in range(2):
         deg = jcompat.degrees(jnp.asarray(P[b]), jnp.asarray(Q[b]), jnp.asarray(P[b]),
-                              jnp.asarray(Q[b]), EXACT, mask_rows=jnp.asarray(mask[b]),
+                              jnp.asarray(Q[b]), _jax(EXACT), mask_rows=jnp.asarray(mask[b]),
                               mask_cols=jnp.asarray(mask[b]))
         anchors.append(np.asarray(lax.top_k(deg, A)[1]))
     return dict(P=P, Q=Q, mask=mask, anchors=np.stack(anchors).astype(np.int64))
@@ -119,9 +125,9 @@ def test_pool_matches_pallas(case, config):
     P, Q = case["P"], case["Q"]
     for b in range(2):
         deg = jcompat.degrees(jnp.asarray(P[b]), jnp.asarray(Q[b]), jnp.asarray(P[b]),
-                              jnp.asarray(Q[b]), params)
+                              jnp.asarray(Q[b]), _jax(params))
         ref = jtri.triangle_pool_from_points(jnp.asarray(P[b]), jnp.asarray(Q[b]), deg,
-                                             params, impl="pallas")
+                                             _jax(params), impl="pallas")
         got = ttri.triangle_pool_from_points(torch.from_numpy(P[b:b + 1]),
                                              torch.from_numpy(Q[b:b + 1]),
                                              torch.from_numpy(np.array(deg))[None], params)
