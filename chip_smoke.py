@@ -38,30 +38,34 @@ Phases (any failure exits non-zero before the result lines are printed):
      card): DP over pairs and TP over hypotheses at the bench point, SP with
      the ring at the kitti configuration, SP without it at the 3DMatch point,
      each held to the single-rank runs of phases 4, 5 and 7; which
-     collectives gloo takes on CUDA tensors; each rank's launch counts.
+     collectives gloo takes on CUDA tensors; each rank's launch counts;
+ 10. the degree loop's per-operation attribution (`compat_ops.cu`, the TPU
+     script scripts/exp_compat_ops.py): each of its five modes in both forms
+     against its plain version at N=3,000 and, on the script's pair, at
+     N=50,000, `full` there bit for bit against the production tri and
+     two-sided kernels, then that script's path
+     (`saccot_tpu_torch.scripts.exp_compat_ops`) at N=50,000 with its launch
+     counts, and one {"compat_ops": {...}} line of the ten times.
 Each kernel row carries its bound: the larger of its FP32 operations over
-the card's FP32 peak and its bytes over the memory rate (`bound` below).
-The line before the last is a JSON table of the kernels; the last line is
+the card's FP32 instruction rate and its bytes over the memory rate
+(`bound_ms`, from the attribution script). The line before the last is a
+JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
 
 
-# Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet): FP32
-# operations outside the tensor cores, and device-memory bytes.
-PEAK_FP32_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations of one scored pair: two distances (6 sub, 6 mul, 4 add),
-# two IEEE square roots (about 6 each: rsqrt plus the Newton step and the
-# rounding fix-up nvcc emits without fast-math), the predicate (7), the
-# i != j test and the masked accumulate (3).
-PAIR_OPS = 40
+# The card's yardstick (FP32 instruction and memory rates), the instructions
+# of one scored pair (PAIR_OPS: distances, two roots, the predicate, the
+# i != j test and the masked accumulate) and the CUDA-event timer are defined
+# once, beside the per-operation attribution that measures them.
+from saccot_tpu_torch.scripts.exp_compat_ops import PAIR_OPS, bound_ms, time_ms
+
 # One 3-point solve: gathers, centroids and the 9-entry covariance (~90),
 # Horn's matrix and eight renormalised 4x4 squarings (~1,050), the column
 # pick, two polish steps and the rotation (~210).
@@ -75,13 +79,6 @@ class PhaseError(RuntimeError):
     pass
 
 
-def bound(ops, nbytes):
-    """(ms, what bounds it): the least time for `ops` FP32 operations and
-    `nbytes` bytes of device memory traffic on one H100."""
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def degrees_cost(b, R, C, same=False, masked=False):
     """(ops, bytes) of weighted degrees of R rows against C columns: P and Q
     read once (rows and columns once each unless they are the same tensors),
@@ -93,25 +90,6 @@ def degrees_cost(b, R, C, same=False, masked=False):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of `fn` over CUDA-event-timed reps after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
 
 
 def off_ties(s, gap):
@@ -287,12 +265,12 @@ def main():
         return SCORE_OPS * b * k * n, 24 * b * n + 48 * b * k + 8 * b * k
 
     def row(name, source, replaces, err, ms, plain_ms, counter, cost):
-        bound_ms, bound_by = bound(*cost)
+        b_ms, b_by = bound_ms(*cost)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          counter=counter, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
         print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
 
     # Degrees: rtol 1e-5, atol 1e-3 — the kernel sums each row in column
     # order, the plain version in torch's reduction order.
@@ -623,7 +601,7 @@ def main():
         time_ms(lambda: kring.ring_degrees_step_reference(*step_args), **big), "ring_degrees",
         (PAIR_OPS * 2 * 25000 * 25000, 2 * 28 * 2 * 25000 + 8 * 2 * 25000))
     print(f"  ring_degrees step at the bench, d=2: kernel {bench_ms:.4f} ms, "
-          f"plain {bench_plain_ms:.4f} ms, bound {bound(PAIR_OPS * 128 * 500 * 500, 0)[0]:.4f} "
+          f"plain {bench_plain_ms:.4f} ms, bound {bound_ms(PAIR_OPS * 128 * 500 * 500, 0)[0]:.4f} "
           "ms (operations)", flush=True)
     print("phase 8 ok", flush=True)
 
@@ -690,6 +668,82 @@ def main():
             r["launches"] = dist_launches[r.pop("counter")]
             check(r["launches"] > 0, f"{r['name']} was not launched by the distributed runs")
     print("phase 9 ok", flush=True)
+
+    # -- phase 10: the degree loop's per-operation attribution (row 11) ------
+    from saccot_tpu_torch.kernels import compat_ops as kops
+    from saccot_tpu_torch.scripts import exp_compat_ops as xops
+
+    def hold_variant(Pv, Qv, got, ref, mode, rtol, what):
+        """Kernel row sums against the plain ones: rtol of the row sum (of the
+        sum of |p_i||p_j| + |q_i||q_j| in gram_only, whose terms take both
+        signs), plus atol 2e-3 in the threshold modes as the degree rows."""
+        atol = 2e-3 if mode in ("no_sqrt_tail", "full") else 0.0
+        if mode == "gram_only":
+            atol = rtol * kops.variant_degrees_reference(
+                Pv.abs(), Qv.abs(), kp, mode, "two_sided").max().item()
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+        print(f"  compat_ops {what}: max |kernel - plain| {(got - ref).abs().max().item():.4g} "
+              f"(rtol {rtol:g}, atol {atol:.3g})", flush=True)
+        return (got - ref).abs().max().item()
+
+    # Each mode x form kernel against its plain version of the same form at
+    # N=3,000 (the ragged edge: 3,000 is no multiple of 128 or 256), rtol
+    # 1e-5: the same operations on each pair, row sums in another order.
+    P1, Q1, _ = kitti_problem_batch([KITTI_SEED], device=dev, n=3000)
+    for form in kops.FORMS:
+        for mode in kops.MODES:
+            hold_variant(P1, Q1, kops.variant_degrees(P1, Q1, kp, mode, form),
+                         kops.variant_degrees_reference(P1, Q1, kp, mode, form), mode, 1e-5,
+                         f"{form}/{mode} at N=3000")
+    # On the script's pair (N=50,000), the size the attribution times, every
+    # mode x form kernel against the two-sided plain version (about 0.2 s a
+    # call; tests/test_torch_exp_compat_ops.py holds the tri plain version
+    # to it). The tri kernel adds 128-term tile sums over 391 tiles: rtol
+    # 1e-5. The two-sided kernel adds 50,000 terms one after another, whose
+    # rounding errors grow as sqrt(n) u on average (n = 50,000, u = 2^-24:
+    # 1.3e-5 of the sum of the terms' magnitudes): rtol 4 sqrt(n) u =
+    # 5.3e-5. `full` is the degree: bit for bit the production kernel of its
+    # form.
+    PX, QX, _ = kitti_problem_batch([KITTI_SEED], device=dev)
+    rtol_x = {"tri": 1e-5, "two_sided": 4 * 50000 ** 0.5 * 2.0 ** -24}
+    full_err = {}
+    for mode in kops.MODES:
+        ref = kops.variant_degrees_reference(PX, QX, kp, mode, "two_sided")
+        for form in kops.FORMS:
+            got = kops.variant_degrees(PX, QX, kp, mode, form)
+            err = hold_variant(PX, QX, got, ref, mode, rtol_x[form], f"{form}/{mode} at N=50000")
+            if mode == "full":
+                full_err[form] = err
+                prod = (kcompat.degrees_tri(PX, QX, kp) if form == "tri" else
+                        kcompat.degrees_two_sided(PX, QX, PX, QX, kp))
+                check(torch.equal(got, prod),
+                      f"compat_ops {form}/full differs from the production kernel at N=50000")
+    print("  compat_ops full: bit-identical to compat_degrees_tri and to the two-sided "
+          "kernel at N=50000", flush=True)
+    plain_ms = {form: time_ms(lambda: kops.variant_degrees_reference(PX, QX, kp, "full", form),
+                              reps=3, warmup=1)
+                for form in kops.FORMS}
+    # The script's path at N=50,000, counted.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    attr = xops.attribution(PX, QX, kp)
+    torch.cuda.synchronize()
+    ops_launches = _build.launches()
+    print(json.dumps({"compat_ops": {f"{r['form']}/{r['mode']}": r["ms"] for r in attr}}))
+    for r in attr:
+        print(f"  {r['form']:9s} {r['mode']:13s} {r['ms']:.4f} ms, {r['ops_per_pair']} ops/pair, "
+              f"bound {r['bound_ms']:.4f} ms, over d2_only {r['over_d2_ms']:+.4f} ms", flush=True)
+    for form in kops.FORMS:
+        n = ops_launches[f"compat_ops_{form}"]
+        check(n > 0, f"compat_ops {form} was not launched by the attribution run")
+        b_ms, b_by = bound_ms(*xops.cost("full", form, 1, 50000))
+        rows.append(dict(
+            name=f"compat_ops_{form}", route="cuda", source="saccot_tpu_torch/csrc/compat_ops.cu",
+            replaces="scripts/exp_compat_ops.py:40", launches=n, max_abs_err=full_err[form],
+            ms=next(r["ms"] for r in attr if r["form"] == form and r["mode"] == "full"),
+            plain_ms=plain_ms[form], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            mode_ms={r["mode"]: r["ms"] for r in attr if r["form"] == form}))
+    print(f"phase 10 ok: launches {ops_launches}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

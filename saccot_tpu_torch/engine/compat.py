@@ -26,12 +26,17 @@ from saccot_tpu_torch.utils.params import SacCotParams
 _BLOCK_ELEMS = 2 ** 25
 
 
-def cross_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[..., R, 3] x [..., C, 3] -> Euclidean distances [..., R, C]."""
+def cross_sq_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., R, 3] x [..., C, 3] -> squared distances ((dx*dx + dy*dy) + dz*dz)."""
     dx = a[..., :, None, 0] - b[..., None, :, 0]
     dy = a[..., :, None, 1] - b[..., None, :, 1]
     dz = a[..., :, None, 2] - b[..., None, :, 2]
-    return torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return dx * dx + dy * dy + dz * dz
+
+
+def cross_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., R, 3] x [..., C, 3] -> Euclidean distances [..., R, C]."""
+    return torch.sqrt(cross_sq_distances(a, b))
 
 
 def pair_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,19 @@
 """Build, load and count the hand-written CUDA kernels.
 
-All `.cu` files under `saccot_tpu_torch/csrc/` are compiled by one
-`nvcc -shared` call into a shared library with a plain C interface, loaded
-with `ctypes`. The build happens at first use (never at import), into
+Every `.cu` file under `saccot_tpu_torch/csrc/` is compiled by its own
+`nvcc -c`, all started together, and the objects are linked by one
+`nvcc -shared` into a shared library with a plain C interface, loaded with
+`ctypes`. The build happens at first use (never at import), into
 `build/saccot_tpu_torch/` at the repository root, under a name that carries
 a hash of the sources, so an edited source triggers a rebuild and an
 unchanged one is reused.
 
 Every entry point returns `cudaGetLastError()` right after its launch;
-`check` raises on a non-zero code. `LAUNCHES` holds one plain integer per
-kernel (three for the fused anchor kernel: its neighbour, candidate and top-T
-modes; two for the two-sided degree kernel: its own route and the direct-form
-one), which a wrapper bumps exactly where it launches its kernel.
+`check` raises on a non-zero code. `LAUNCHES` holds thirteen plain integers,
+one per kernel (three for the fused anchor kernel: its neighbour, candidate
+and top-T modes; two for the two-sided degree kernel: its own route and the
+direct-form one; two for the timing variants of `compat_ops.cu`: one per
+form), which a wrapper bumps exactly where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "saccot_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 LAUNCHES: Dict[str, int] = {
@@ -44,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "solve3": 0,
     "score": 0,
     "ring_degrees": 0,            # one ring step of the correspondence-sharded degrees
+    "compat_ops_two_sided": 0,    # timing variants of the degree loop (compat_ops.cu)
+    "compat_ops_tri": 0,
 }
 
 _P = ctypes.c_void_p
@@ -59,6 +63,7 @@ _SIGNATURES = {
     "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
     "saccot_score": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
     "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _P],
+    "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -95,26 +100,38 @@ def source_hash() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels if this source hash has no library yet."""
+    """Compile the kernels if this source hash has no library yet: one
+    `nvcc -c` per source, all at once, then one link."""
     global build_seconds, build_log
     out = BUILD_DIR / f"libsaccot_kernels_{source_hash()}.so"
     if out.exists():
         build_seconds = 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = find_nvcc()
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [work / f"{src.stem}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [(src, proc, *proc.communicate()) for src, proc in zip(srcs, procs)]
+    build_log = "".join(f"== {src.name}\n{o}{e}" for src, _, o, e in logs)
+    failed = [f"{src.name} ({proc.returncode}):\n{e}" for src, proc, _, e in logs
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    tmp = work / out.name
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
     (BUILD_DIR / "build.log").write_text(build_log)
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -104,6 +104,7 @@ def test_port_imports_no_jax():
         "import saccot_tpu_torch.utils.convert, saccot_tpu_torch.utils.profile\n"
         "import saccot_tpu_torch.kernels.ring_compat, saccot_tpu_torch.dist.ring\n"
         "import saccot_tpu_torch.dist.mesh, saccot_tpu_torch.dist.sweep, saccot_tpu_torch.dist.local\n"
+        "import saccot_tpu_torch.kernels.compat_ops, saccot_tpu_torch.scripts.exp_compat_ops\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', 'saccot_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
