@@ -6,10 +6,15 @@
 Phases (any failure exits non-zero before the result lines are printed):
   1. require a CUDA device; print the card's name and power limit; turn TF32
      off for matmuls and cuDNN;
-  2. build the kernels from saccot_tpu_torch/csrc (one nvcc call);
+  2. build the kernels from saccot_tpu_torch/csrc (one nvcc -c per source,
+     started together, then one link);
   3. each kernel against its plain PyTorch version on the card, at the bench
      shapes (batch 128, N=1000, A=256, B=12, K=1024), with the stated
-     tolerances, and the median time of each over CUDA-event-timed reps;
+     tolerances, and the median time of each over CUDA-event-timed reps; the
+     fused anchor kernel's selections bit for bit against the streamed
+     kernel's (column tiles of 256) and its top-T mode against
+     `candidate_topt` on its own selections; the warps per block of the
+     anchor kernel and the point splits of the score kernel at each shape;
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
@@ -22,7 +27,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      kernel (also bit-identical across two calls, and against the two-sided
      kernel), the streamed top-B (also bit-identical to the fused kernel at
      N=3,000 over three column tiles), the candidate top-T (also against the
-     fused kernel's top-T mode), and the solve and score kernels at N=50,000;
+     fused kernel's top-T mode), and the solve and score kernels at N=50,000:
+     score's counts identical to the plain version's, its weighted mode
+     within the stated tolerance and bit-identical across two calls, and its
+     counts identical at the SP shard's 25,000 points;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
@@ -64,7 +72,7 @@ import time
 # of one scored pair (PAIR_OPS: distances, two roots, the predicate, the
 # i != j test and the masked accumulate) and the CUDA-event timer are defined
 # once, beside the per-operation attribution that measures them.
-from saccot_tpu_torch.scripts.exp_compat_ops import PAIR_OPS, bound_ms, time_ms
+from saccot_tpu_torch.scripts.exp_compat_ops import PAIR_OPS, bound_ms, sass_loops, time_ms
 
 # One 3-point solve: gathers, centroids and the 9-entry covariance (~90),
 # Horn's matrix and eight renormalised 4x4 squarings (~1,050), the column
@@ -102,6 +110,11 @@ def off_ties(s, gap):
     tie[..., :-1] |= close
     tie[..., 1:] |= close
     return ~tie
+
+
+def plan_str(plan):
+    """One kernel plan as `field=value` pairs."""
+    return ", ".join(f"{k}={v}" for k, v in dataclasses.asdict(plan).items())
 
 
 def rot_deg(T_a, T_b):
@@ -221,6 +234,7 @@ def main():
           "TF32 is still enabled")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from saccot_tpu_torch import SacCotParams, register_batch
@@ -242,6 +256,13 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    # The loops of the two kernels redesigned for Hopper, as compiled, longest
+    # first: score's point-tile loop, then its inner loop over 4 points x 2
+    # hypotheses; the anchor kernel's row loop over 2 columns with and
+    # without a column mask, then its selection rounds.
+    for name in ("score_kernel", "anchor_topb_kernel"):
+        for fn, loops in sass_loops(name).items():
+            print(f"  sass {fn[fn.index(name):][:40]}: loop bodies {loops[:4]} instructions")
 
     # -- phase 3: kernels vs plain versions at the bench shapes ------------
     fast = SacCotParams(
@@ -292,6 +313,7 @@ def main():
         "topt": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 4) * cands,
                  anchor_in + 20 * 128 * A * T),
     }
+    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, tile_n=256)
     for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
         got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
         ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)
@@ -310,11 +332,25 @@ def main():
             check(torch.equal(got[3][clear_t], ref[3][clear_t])
                   and torch.equal(got[4][clear_t], ref[4][clear_t]),
                   "anchor_topb topt: decoded node ids differ")
+        # The warp-scope selection against the streamed kernel's block-scope
+        # one (unchanged, four column tiles of 256): bit for bit, since the
+        # key is a total order.
+        check(torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1]),
+              f"anchor_topb {mode}: selections differ from anchor_neighbors_stream")
+        if mode == "topt":
+            # The fused top-T against candidate_topt on the fused selections.
+            ct = ktri.candidate_topt(got[0], got[1], *ktri.gather_neighbors(P, Q, got[1]), T,
+                                     tau, sep)
+            check(all(torch.equal(x, y) for x, y in zip(ct, got[2:])),
+                  "anchor_topb topt differs from candidate_topt on its selections")
         row(f"anchor_topb_{mode}", "saccot_tpu_torch/csrc/anchor_topb.cu",
             "saccot_tpu/kernels/triangles.py:42", max(err_s, err_c),
             time_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)),
             time_ms(lambda: ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)),
             f"anchor_topb_{mode}", anchor_cost[mode])
+    print(f"  anchor_topb at N=1000, B={B}: {plan_str(ktri.anchor_plan(1000, B))}; selections "
+          "bit-identical to anchor_neighbors_stream(tile_n=256), top-T to candidate_topt",
+          flush=True)
 
     pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, exact, impl="plain")
     triples = pool.triples
@@ -343,6 +379,8 @@ def main():
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q,
                                                           fast.inlier_tau)), "score",
         score_cost(128, 1000, r9_ref.shape[2]))
+    print(f"  score at batch 128, K={r9_ref.shape[2]}, N=1000: "
+          f"{plan_str(kscore.score_plan(128, r9_ref.shape[2], 1000, sms))}", flush=True)
     print(f"phase 3 ok: counts identical for {same:.5f} of hypotheses", flush=True)
 
     # -- phase 4: the main path at the bench point ---------------------------
@@ -381,6 +419,9 @@ def main():
     rec_k = recall(register_batch(P3, Q3, tdm), T3, 15.0, 0.30)
     rec_p = recall(register_batch(P3, Q3, tdm, impl="plain"), T3, 15.0, 0.30)
     check(abs(rec_k - rec_p) <= 1 / 32, f"3DMatch recall: kernels {rec_k}, plain {rec_p}")
+    print(f"  3DMatch plans: anchor_topb at N=2048, B=16: {plan_str(ktri.anchor_plan(2048, 16))}; "
+          f"score at batch 32, K=2048, N=2048: {plan_str(kscore.score_plan(32, 2048, 2048, sms))}",
+          flush=True)
     print(f"phase 5 ok: 3DMatch recall kernels {rec_k:.4f}, plain {rec_p:.4f}", flush=True)
 
     # -- phase 6: the large-N kernels vs plain versions at the kitti shapes --
@@ -489,6 +530,35 @@ def main():
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK,
                                                           kp.inlier_tau), **big), "score",
         score_cost(2, 50000, r9_ref.shape[2]))
+    Kk = r9_ref.shape[2]
+    kplan = kscore.score_plan(2, Kk, 50000, sms)
+    print(f"  score at batch 2, K={Kk}, N=50000: {plan_str(kplan)}", flush=True)
+    # Weighted mode at kitti: every term is the plain version's bit for bit
+    # (the same rounded operations and IEEE root); only the order of the sums
+    # differs. Both add non-negative terms, so each side's relative error is
+    # at most u = 2^-24 per addition made in sequence: the kernel adds a chunk
+    # (1,516 points) and then the splits (33); torch's reduction fewer than
+    # 1,000 per thread and its tree. rtol (chunk + splits + 1,000) u, atol 0.
+    # Two calls give the same bits (the splits and their order are fixed).
+    kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
+    ws, wc = kscore.score_hypotheses(*kargs, mode="weighted")
+    wr, wrc = kscore.score_hypotheses_reference(*kargs, mode="weighted")
+    check(torch.equal(wc, wrc), "score weighted at N=50000: counts differ")
+    rtol_w = (kplan.chunk + kplan.splits + 1000) * 2.0 ** -24
+    torch.testing.assert_close(ws, wr, rtol=rtol_w, atol=0.0)
+    ws2 = kscore.score_hypotheses(*kargs, mode="weighted")[0]
+    check(torch.equal(ws, ws2), "score weighted at N=50000: two calls differ")
+    weighted_ms = time_ms(lambda: kscore.score_hypotheses(*kargs, mode="weighted"), reps=10)
+    print(f"  score weighted at N=50000: max |kernel - plain| "
+          f"{(ws - wr).abs().max().item():.4g} (rtol {rtol_w:.3g}), two calls bit-identical, "
+          f"{weighted_ms:.4f} ms", flush=True)
+    # The SP shard's points (the first 25,000 of each pair): counts identical.
+    sh = (r9_ref, t3_ref, PK[:, :25000].contiguous(), QK[:, :25000].contiguous(),
+          kp.inlier_tau)
+    check(torch.equal(kscore.score_hypotheses(*sh)[1], kscore.score_hypotheses_reference(*sh)[1]),
+          "score at the SP shard (N=25000): counts differ")
+    print(f"  score at the SP shard, N=25000: {plan_str(kscore.score_plan(2, Kk, 25000, sms))}, "
+          "counts identical", flush=True)
     print(f"phase 6 ok: score counts identical for {same:.5f} of hypotheses", flush=True)
 
     # -- phase 7: register_batch at the kitti configuration --------------------

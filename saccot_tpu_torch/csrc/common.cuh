@@ -84,6 +84,52 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* red_v, int
     __syncthreads();  // red_* may be rewritten by the next call
 }
 
+// An unsigned key that orders as the float does, for values that are not
+// NaN: -0 is first made +0 (x + 0 gives +0 for -0 and x otherwise), since
+// key_before treats the two as equal.
+__device__ __forceinline__ unsigned ordered_key(float v) {
+    const unsigned u = __float_as_uint(v + 0.0f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float ordered_value(unsigned k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Warp-wide arg-max under key_before, with two warp reductions (REDUX): the
+// largest value, then the smallest index among the lanes that hold it. Every
+// lane gets the warp's best back. No shared memory and no barrier; all 32
+// lanes must call it. Values must not be NaN (as for key_before).
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+    const unsigned full = 0xffffffffu;
+    const unsigned k = ordered_key(v);
+    const unsigned best = __reduce_max_sync(full, k);
+    i = static_cast<int>(__reduce_min_sync(full, k == best ? static_cast<unsigned>(i)
+                                                           : 0xffffffffu));
+    v = ordered_value(best);
+}
+
+// The two scopes the candidate helpers below run at: a whole block (the
+// streamed path's candidate kernel, candidate_topt.cu) or one warp (the fused
+// anchor kernel, anchor_topb.cu, one anchor per warp).
+struct BlockScope {
+    float* red_v;   // one slot per warp, for block_argmax
+    int* red_i;
+    __device__ __forceinline__ int rank() const { return threadIdx.x; }
+    __device__ __forceinline__ int size() const { return blockDim.x; }
+    __device__ __forceinline__ void sync() const { __syncthreads(); }
+    __device__ __forceinline__ void argmax(float& v, int& i) const {
+        block_argmax(v, i, red_v, red_i);
+    }
+};
+
+struct WarpScope {
+    __device__ __forceinline__ int rank() const { return threadIdx.x & 31; }
+    __device__ __forceinline__ int size() const { return 32; }
+    __device__ __forceinline__ void sync() const { __syncwarp(); }
+    __device__ __forceinline__ void argmax(float& v, int& i) const { warp_argmax(v, i); }
+};
+
 // Candidate triangles of one anchor from its B selected neighbours, shared by
 // the fused anchor kernel (anchor_topb.cu) and the streamed path's candidate
 // kernel (candidate_topt.cu), so both score and rank candidates bit for bit
@@ -93,12 +139,13 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* red_v, int
 // Fills grid_s[B * B]: entry b1 * B + b2 holds (s_b1 + s_b2) + s_b1b2 when
 // b1 < b2 and all three edges are positive, -1 otherwise. With `triu` set it
 // also writes the upper-triangle entries in np.triu_indices(B, k=1) order.
-// Every thread of the block must call it; it ends with a barrier.
-__device__ __forceinline__ void candidate_grid(const float* sel_s, const float* sp,
-                                               const float* sq, int B, float tau,
-                                               float inv_tau, float min_sep, float* grid_s,
-                                               float* triu) {
-    for (int pid = threadIdx.x; pid < B * B; pid += blockDim.x) {
+// Every thread of the scope must call it; it ends with the scope's barrier.
+template <class Scope>
+__device__ __forceinline__ void candidate_grid(const Scope& scope, const float* sel_s,
+                                               const float* sp, const float* sq, int B,
+                                               float tau, float inv_tau, float min_sep,
+                                               float* grid_s, float* triu) {
+    for (int pid = scope.rank(); pid < B * B; pid += scope.size()) {
         const int b1 = pid / B;
         const int b2 = pid - b1 * B;
         float v = -1.0f;
@@ -116,24 +163,34 @@ __device__ __forceinline__ void candidate_grid(const float* sel_s, const float* 
         }
         grid_s[pid] = v;
     }
-    __syncthreads();
+    scope.sync();
+}
+
+// The block form (candidate_topt.cu).
+__device__ __forceinline__ void candidate_grid(const float* sel_s, const float* sp,
+                                               const float* sq, int B, float tau,
+                                               float inv_tau, float min_sep, float* grid_s,
+                                               float* triu) {
+    candidate_grid(BlockScope{nullptr, nullptr}, sel_s, sp, sq, B, tau, inv_tau, min_sep,
+                   grid_s, triu);
 }
 
 // top_t argmax rounds over the candidate grid (score desc, pair id asc, the
 // order of lax.top_k over the flattened grid), each winner knocked out with
 // -inf. Writes max(score, -1) and the node ids sel_i[b1], sel_i[b2] of the
-// winner's two neighbours. Every thread of the block must call it.
-__device__ __forceinline__ void grid_top_t(float* grid_s, const int* sel_i, int B, int top_t,
-                                           float* red_v, int* red_i, float* cand_row,
+// winner's two neighbours. Every thread of the scope must call it.
+template <class Scope>
+__device__ __forceinline__ void grid_top_t(const Scope& scope, float* grid_s, const int* sel_i,
+                                           int B, int top_t, float* cand_row,
                                            long long* j_row, long long* k_row) {
     for (int t = 0; t < top_t; ++t) {
         float v = -INFINITY;
         int slot = B * B;
-        for (int pid = threadIdx.x; pid < B * B; pid += blockDim.x) {
+        for (int pid = scope.rank(); pid < B * B; pid += scope.size()) {
             if (key_before(grid_s[pid], pid, v, slot)) { v = grid_s[pid]; slot = pid; }
         }
-        block_argmax(v, slot, red_v, red_i);
-        if (threadIdx.x == 0) {
+        scope.argmax(v, slot);
+        if (scope.rank() == 0) {
             slot = min(slot, B * B - 1);
             const int b1 = slot / B;
             const int b2 = slot - b1 * B;
@@ -142,8 +199,15 @@ __device__ __forceinline__ void grid_top_t(float* grid_s, const int* sel_i, int 
             k_row[t] = sel_i[b2];
             grid_s[slot] = -INFINITY;
         }
-        __syncthreads();
+        scope.sync();
     }
+}
+
+// The block form (candidate_topt.cu); red_v / red_i hold one slot per warp.
+__device__ __forceinline__ void grid_top_t(float* grid_s, const int* sel_i, int B, int top_t,
+                                           float* red_v, int* red_i, float* cand_row,
+                                           long long* j_row, long long* k_row) {
+    grid_top_t(BlockScope{red_v, red_i}, grid_s, sel_i, B, top_t, cand_row, j_row, k_row);
 }
 
 }  // namespace saccot

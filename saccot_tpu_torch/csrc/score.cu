@@ -6,25 +6,46 @@
 // mask into q by moving masked targets to 1e15; here a masked point is skipped
 // explicitly.
 //
-// Bound: FP32 operations. About 1.3e8 (hypothesis, point) pairs per batch at
-// the bench point (128 x 1024 hypotheses x 1000 points), 2e8 at the kitti
-// point (2 x 2048 x 50,000), ~25 operations each; the points are re-read
-// from shared memory, so device memory traffic is O(K + N) per batch.
+// Bound: FP32 instructions. SCORE_OPS = 28 per (hypothesis, point) pair (the
+// residual 3 x 7, its square 5, the threshold and the count) at 33.45e12
+// instructions/s: 1.3e8 pairs per batch at the bench point (128 x 1024
+// hypotheses x 1000 points), 2e8 at the kitti point (2 x 2048 x 50,000).
+// Device memory traffic is O(K + N) per batch element. As compiled, the
+// count-mode inner loop issues about 246 instructions for 4 points x 2
+// hypotheses, 30.8 a pair (chip_smoke.py prints the loop sizes).
 //
-// Design: grid (hypothesis tiles, batch), one hypothesis per thread holding
-// its 12 floats in registers, and a loop over point tiles staged in shared
-// memory as SoA. The count is an int32 register accumulator; the square root
-// of the weighted mode is only computed in that mode. The residual is formed
-// as ((t - q) + r0 p0) + r1 p1 + r2 p2, the TPU kernel's order, with explicitly
-// rounded operations (common.cuh), as the plain PyTorch version forms it: no
-// product contracts into an FMA, so every inlier decision, and so every count,
-// equals the plain version's. (With FMAs, 0.27% of the hypotheses at the
-// kitti point, N = 50,000, counted one point differently.)
+// Design. The grid is (hypothesis tiles, point splits, batch):
+//   - A block of 128 threads holds 256 hypotheses, two a thread, 12 floats
+//     each in registers. Each point is staged once in shared memory as two
+//     float4s, (px, py, pz, qx) and (qy, qz, m, 0), so a point costs two
+//     vector loads shared by both hypotheses of a thread (the first design
+//     spent 7 scalar loads on every pair).
+//   - Where the hypothesis tiles alone do not fill the card (kitti: 8 tiles
+//     x batch 2 = 16 blocks on 132 SMs), the wrapper splits the point axis
+//     into contiguous chunks, one per blockIdx.y (kernels/score.py
+//     score_plan). Each split writes its partial counts and weights to a
+//     scratch [batch, splits, K]; the last block of a hypothesis tile to
+//     finish (a __threadfence and an atomic ticket per tile) sums the splits
+//     in split order and writes the result, in the same launch. Counts are
+//     integers; weights come out the same bits on every call, since the
+//     splits and their order depend only on (batch, K, N) and the SM count.
+//     The wrapper zeroes the tickets with torch.zeros: one small fill
+//     kernel before each launch that splits.
+//   - `weighted` and "has a mask" are template parameters: the count-mode
+//     loop has no branch.
+// The residual is formed as ((t - q) + r0 p0) + r1 p1 + r2 p2, the TPU
+// kernel's order, with explicitly rounded operations (common.cuh), as the
+// plain PyTorch version forms it: no product contracts into an FMA, so every
+// inlier decision, and so every count, equals the plain version's. (With
+// FMAs, 0.27% of the hypotheses at the kitti point, N = 50,000, counted one
+// point differently.)
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kHyp = 2;                       // hypotheses per thread
+constexpr int kHypTile = kThreads * kHyp;     // hypotheses per block
 constexpr int kPointTile = 512;
 
 using saccot::add_rn;
@@ -38,72 +59,149 @@ __device__ __forceinline__ float residual(float t, float q, float r0, float r1, 
                   mul_rn(r2, p2));
 }
 
+template <bool kWeighted, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
              const float* __restrict__ P, const float* __restrict__ Q,
              const float* __restrict__ mask, float* __restrict__ scores,
-             int* __restrict__ counts, int N, int K, float tau2, float inv_tau,
-             int weighted) {
-    __shared__ float spx[kPointTile], spy[kPointTile], spz[kPointTile];
-    __shared__ float sqx[kPointTile], sqy[kPointTile], sqz[kPointTile];
-    __shared__ float sm[kPointTile];
+             int* __restrict__ counts, int* __restrict__ part_c, float* __restrict__ part_w,
+             int* __restrict__ tickets, int N, int K, int chunk, float tau2, float inv_tau) {
+    __shared__ float4 spq[kPointTile];   // (px, py, pz, qx)
+    __shared__ float4 sqm[kPointTile];   // (qy, qz, m, 0)
+    __shared__ int is_last;
 
-    const int b = blockIdx.y;
-    const int k = blockIdx.x * kThreads + threadIdx.x;
-    const bool k_ok = k < K;
-    const int kk = k_ok ? k : 0;
-    const long long base9 = static_cast<long long>(b) * 9 * K + kk;
-    const long long base3 = static_cast<long long>(b) * 3 * K + kk;
-    float r[9], t[3];
-    for (int e = 0; e < 9; ++e) r[e] = r9[base9 + static_cast<long long>(e) * K];
-    for (int c = 0; c < 3; ++c) t[c] = t3[base3 + static_cast<long long>(c) * K];
+    const int tile = blockIdx.x;
+    const int split = blockIdx.y;
+    const int splits = gridDim.y;
+    const int b = blockIdx.z;
+
+    float r[kHyp][9], t[kHyp][3];
+#pragma unroll
+    for (int h = 0; h < kHyp; ++h) {
+        const int k = tile * kHypTile + h * kThreads + threadIdx.x;
+        const int kk = k < K ? k : 0;
+        const long long base9 = static_cast<long long>(b) * 9 * K + kk;
+        const long long base3 = static_cast<long long>(b) * 3 * K + kk;
+#pragma unroll
+        for (int e = 0; e < 9; ++e) r[h][e] = r9[base9 + static_cast<long long>(e) * K];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) t[h][c] = t3[base3 + static_cast<long long>(c) * K];
+    }
 
     const float* Pb = P + static_cast<long long>(b) * N * 3;
     const float* Qb = Q + static_cast<long long>(b) * N * 3;
-    const float* mb = mask ? mask + static_cast<long long>(b) * N : nullptr;
+    const float* mb = kMasked ? mask + static_cast<long long>(b) * N : nullptr;
+    const int n_begin = split * chunk;
+    const int n_end = min(N, n_begin + chunk);
 
-    int count = 0;
-    float wsum = 0.0f;
-    for (int n0 = 0; n0 < N; n0 += kPointTile) {
-        const int n = min(kPointTile, N - n0);
+    int count[kHyp];
+    float wsum[kHyp];
+#pragma unroll
+    for (int h = 0; h < kHyp; ++h) { count[h] = 0; wsum[h] = 0.0f; }
+
+    for (int n0 = n_begin; n0 < n_end; n0 += kPointTile) {
+        const int n = min(kPointTile, n_end - n0);
         for (int i = threadIdx.x; i < n; i += kThreads) {
             const long long o = static_cast<long long>(n0 + i) * 3;
-            spx[i] = Pb[o]; spy[i] = Pb[o + 1]; spz[i] = Pb[o + 2];
-            sqx[i] = Qb[o]; sqy[i] = Qb[o + 1]; sqz[i] = Qb[o + 2];
-            sm[i] = mb ? mb[n0 + i] : 1.0f;
+            spq[i] = make_float4(Pb[o], Pb[o + 1], Pb[o + 2], Qb[o]);
+            sqm[i] = make_float4(Qb[o + 1], Qb[o + 2], kMasked ? mb[n0 + i] : 1.0f, 0.0f);
         }
         __syncthreads();
+#pragma unroll 4
         for (int i = 0; i < n; ++i) {
-            const float px = spx[i], py = spy[i], pz = spz[i];
-            const float x0 = residual(t[0], sqx[i], r[0], r[1], r[2], px, py, pz);
-            const float x1 = residual(t[1], sqy[i], r[3], r[4], r[5], px, py, pz);
-            const float x2 = residual(t[2], sqz[i], r[6], r[7], r[8], px, py, pz);
-            const float d2 = add_rn(add_rn(mul_rn(x0, x0), mul_rn(x1, x1)), mul_rn(x2, x2));
-            const bool live = sm[i] > 0.0f;
-            count += (live && d2 < tau2) ? 1 : 0;
-            if (weighted && live) {
-                wsum += fmaxf(0.0f, sub_rn(1.0f, mul_rn(__fsqrt_rn(d2), inv_tau)));
+            const float4 a = spq[i];
+            const float4 c = sqm[i];
+            const bool live = !kMasked || c.z > 0.0f;
+#pragma unroll
+            for (int h = 0; h < kHyp; ++h) {
+                const float x0 = residual(t[h][0], a.w, r[h][0], r[h][1], r[h][2], a.x, a.y, a.z);
+                const float x1 = residual(t[h][1], c.x, r[h][3], r[h][4], r[h][5], a.x, a.y, a.z);
+                const float x2 = residual(t[h][2], c.y, r[h][6], r[h][7], r[h][8], a.x, a.y, a.z);
+                const float d2 = add_rn(add_rn(mul_rn(x0, x0), mul_rn(x1, x1)), mul_rn(x2, x2));
+                count[h] += (live && d2 < tau2) ? 1 : 0;
+                if (kWeighted && live) {
+                    wsum[h] += fmaxf(0.0f, sub_rn(1.0f, mul_rn(__fsqrt_rn(d2), inv_tau)));
+                }
             }
         }
         __syncthreads();
     }
-    if (k_ok) {
-        const long long o = static_cast<long long>(b) * K + k;
-        counts[o] = count;
-        scores[o] = weighted ? wsum : static_cast<float>(count);
+
+    const long long out_b = static_cast<long long>(b) * K;
+    if (splits == 1) {
+#pragma unroll
+        for (int h = 0; h < kHyp; ++h) {
+            const int k = tile * kHypTile + h * kThreads + threadIdx.x;
+            if (k < K) {
+                counts[out_b + k] = count[h];
+                scores[out_b + k] = kWeighted ? wsum[h] : static_cast<float>(count[h]);
+            }
+        }
+        return;
     }
+
+    // This split's partial sums, then the tile's ticket.
+    const long long part = (static_cast<long long>(b) * splits + split) * K;
+#pragma unroll
+    for (int h = 0; h < kHyp; ++h) {
+        const int k = tile * kHypTile + h * kThreads + threadIdx.x;
+        if (k < K) {
+            part_c[part + k] = count[h];
+            if (kWeighted) part_w[part + k] = wsum[h];
+        }
+    }
+    __threadfence();
+    __syncthreads();
+    int* ticket = tickets + static_cast<long long>(b) * gridDim.x + tile;
+    if (threadIdx.x == 0) is_last = atomicAdd(ticket, 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+
+    // The last block of the tile: every split's partials are visible (each
+    // writer fenced before taking its ticket); read them past L1, in split order.
+    __threadfence();
+#pragma unroll
+    for (int h = 0; h < kHyp; ++h) {
+        const int k = tile * kHypTile + h * kThreads + threadIdx.x;
+        if (k < K) {
+            int c = 0;
+            float w = 0.0f;
+            for (int s = 0; s < splits; ++s) {
+                const long long o = (static_cast<long long>(b) * splits + s) * K + k;
+                c += __ldcg(part_c + o);
+                if (kWeighted) w = add_rn(w, __ldcg(part_w + o));
+            }
+            counts[out_b + k] = c;
+            scores[out_b + k] = kWeighted ? w : static_cast<float>(c);
+        }
+    }
+}
+
+template <bool kWeighted, bool kMasked>
+void launch(const dim3& grid, cudaStream_t stream, const float* r9, const float* t3,
+            const float* P, const float* Q, const float* mask, float* scores, int* counts,
+            int* part_c, float* part_w, int* tickets, int N, int K, int chunk, float tau2,
+            float inv_tau) {
+    score_kernel<kWeighted, kMasked><<<grid, kThreads, 0, stream>>>(
+        r9, t3, P, Q, mask, scores, counts, part_c, part_w, tickets, N, K, chunk, tau2,
+        inv_tau);
 }
 
 }  // namespace
 
+// splits > 1 needs part_c (and part_w in weighted mode) of [batch, splits, K]
+// and tickets of [batch, ceil(K / 256)] ints that are zero.
 extern "C" int saccot_score(const void* r9, const void* t3, const void* P, const void* Q,
-                            const void* mask, void* scores, void* counts, int batch, int N,
-                            int K, float tau2, float inv_tau, int weighted, void* stream) {
-    const dim3 grid((K + kThreads - 1) / kThreads, batch);
-    score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(r9), static_cast<const float*>(t3),
-        static_cast<const float*>(P), static_cast<const float*>(Q),
-        static_cast<const float*>(mask), static_cast<float*>(scores),
-        static_cast<int*>(counts), N, K, tau2, inv_tau, weighted);
+                            const void* mask, void* scores, void* counts, void* part_c,
+                            void* part_w, void* tickets, int batch, int N, int K, int splits,
+                            int chunk, float tau2, float inv_tau, int weighted, void* stream) {
+    const dim3 grid((K + kHypTile - 1) / kHypTile, splits, batch);
+    auto* fn = weighted ? (mask ? launch<true, true> : launch<true, false>)
+                        : (mask ? launch<false, true> : launch<false, false>);
+    fn(grid, static_cast<cudaStream_t>(stream), static_cast<const float*>(r9),
+       static_cast<const float*>(t3), static_cast<const float*>(P),
+       static_cast<const float*>(Q), static_cast<const float*>(mask),
+       static_cast<float*>(scores), static_cast<int*>(counts), static_cast<int*>(part_c),
+       static_cast<float*>(part_w), static_cast<int*>(tickets), N, K, chunk, tau2, inv_tau);
     return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,13 @@
 
 Replaces `saccot_tpu/kernels/score.py::_score_kernel` with `csrc/score.cu`.
 Hypotheses arrive in the solve's native layout, rotations `r9 [batch, 9, K]`
-(row-major entries) and translations `t3 [batch, 3, K]`.
+(row-major entries) and translations `t3 [batch, 3, K]`. `score_plan` decides
+how the kernel's grid covers (batch, K, N) on a card of a given SM count.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -16,6 +18,55 @@ from saccot_tpu_torch.engine import score as score_mod
 from saccot_tpu_torch.engine.score import reduce_scores
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
+
+
+# The kernel's block: 128 threads, two hypotheses each (csrc/score.cu kThreads,
+# kHyp).
+THREADS = 128
+HYP_PER_THREAD = 2
+HYP_TILE = THREADS * HYP_PER_THREAD
+# A hypothesis grid of at least FULL_BLOCKS_PER_SM blocks a SM (12 warps)
+# fills the card and takes one split; a smaller one splits the point axis
+# until it has SPLIT_BLOCKS_PER_SM blocks a SM (16 warps, all resident at
+# once), into chunks of at least MIN_SPLIT_POINTS points.
+FULL_BLOCKS_PER_SM = 3
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_POINTS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan:
+    """Grid of the score kernel: (tiles, splits, batch) blocks; split s
+    covers points [s * chunk, min(N, (s + 1) * chunk))."""
+    batch: int
+    tiles: int
+    splits: int
+    chunk: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits * self.batch
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def score_plan(batch: int, K: int, N: int, sms: int) -> ScorePlan:
+    """The score kernel's grid for `batch` x K hypotheses against N points
+    on a card with `sms` SMs."""
+    tiles = _cdiv(K, HYP_TILE)
+    base = max(1, tiles * batch)
+    splits = 1
+    if base < FULL_BLOCKS_PER_SM * sms:
+        splits = max(1, min(_cdiv(SPLIT_BLOCKS_PER_SM * sms, base),
+                            _cdiv(N, MIN_SPLIT_POINTS)))
+    chunk = max(1, _cdiv(N, splits))
+    return ScorePlan(batch=batch, tiles=tiles, splits=max(1, _cdiv(N, chunk)), chunk=chunk)
+
+
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_hyp(x: torch.Tensor, rows: int, batch: int, name: str) -> torch.Tensor:
@@ -69,15 +120,27 @@ def score_hypotheses(
         raise ValueError(f"t3 has {t3.shape[2]} hypotheses, r9 {K}")
     P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
     mask = optional_mask(mask, batch, N, P.device)
-    scores = torch.empty((batch, K), dtype=torch.float32, device=P.device)
-    counts = torch.empty((batch, K), dtype=torch.int32, device=P.device)
+    dev = P.device
+    scores = torch.empty((batch, K), dtype=torch.float32, device=dev)
+    counts = torch.empty((batch, K), dtype=torch.int32, device=dev)
     if batch == 0 or K == 0:
         return scores, counts
+    weighted = mode == "weighted"
+    plan = score_plan(batch, K, N, sm_count(dev))
+    part_c = part_w = tickets = None
+    if plan.splits > 1:
+        part_c = torch.empty((batch, plan.splits, K), dtype=torch.int32, device=dev)
+        if weighted:
+            part_w = torch.empty((batch, plan.splits, K), dtype=torch.float32, device=dev)
+        # One ticket per (batch, hypothesis tile); the tile's last block sums
+        # the splits.
+        tickets = torch.zeros((batch, plan.tiles), dtype=torch.int32, device=dev)
     lib = _build.library()
     rc = lib.saccot_score(
-        ptr(r9), ptr(t3), ptr(P), ptr(Q), ptr(mask), ptr(scores), ptr(counts),
-        batch, N, K, float(np.float32(tau * tau)), float(np.float32(1.0 / tau)),
-        int(mode == "weighted"), stream_of(scores),
+        ptr(r9), ptr(t3), ptr(P), ptr(Q), ptr(mask), ptr(scores), ptr(counts), ptr(part_c),
+        ptr(part_w), ptr(tickets), batch, N, K, plan.splits, plan.chunk,
+        float(np.float32(tau * tau)), float(np.float32(1.0 / tau)), int(weighted),
+        stream_of(scores),
     )
     _build.check(rc, "score")
     _build.LAUNCHES["score"] += 1

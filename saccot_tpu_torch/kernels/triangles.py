@@ -3,8 +3,8 @@ their plain PyTorch versions.
 
 Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
   - `_anchor_topb_kernel` by `csrc/anchor_topb.cu` (`anchor_neighbors`,
-    N <= MAX_N_FUSED: the anchor row lives in shared memory), in both of its
-    output modes:
+    N <= MAX_N_FUSED: the anchor row lives in shared memory; one warp per
+    anchor, `anchor_plan` of them a block), in both of its output modes:
       `emit_candidates=True`: the score of every candidate triangle
       (anchor, b1, b2), b1 < b2 in `np.triu_indices(B, k=1)` order, -1 when
       invalid (the exact config);
@@ -22,6 +22,7 @@ promise it).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -37,6 +38,37 @@ MAX_N_FUSED = 4096   # the anchor row lives in shared memory (16 KB)
 MAX_NEIGHBORS = 32   # the B x B pair grid lives in shared memory
 TILE_N_STREAM = 2048  # column tile of the streaming kernel (8 KB of shared memory)
 _MAX_TILE_N = 12288   # 48 KB of dynamic shared memory without an opt-in
+# The fused kernel (csrc/anchor_topb.cu) runs one warp per anchor, at most
+# MAX_WARPS warps a block. Each warp's shared region is its selections
+# (WarpScratch, WARP_SCRATCH_WORDS words) and max(N, B*B) floats: the score
+# row, later the pair grid. A block takes as many warps as fit in
+# ANCHOR_SMEM_BUDGET bytes, the dynamic shared memory a block gets without an
+# opt-in; residency per SM is then bound by the SM's shared memory, whatever W.
+MAX_WARPS = 8
+WARP_SCRATCH_WORDS = 8 * MAX_NEIGHBORS
+ANCHOR_SMEM_BUDGET = 48 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class AnchorPlan:
+    """Block shape of the fused anchor kernel: `warps` anchors a block and
+    its dynamic shared memory in bytes."""
+    warps: int
+    smem_bytes: int
+
+
+def anchor_plan(N: int, B: int) -> AnchorPlan:
+    """Warps per block and shared bytes of the fused anchor kernel at N
+    columns and B neighbours (1 <= B <= MAX_NEIGHBORS, B <= N <= MAX_N_FUSED)."""
+    if not 1 <= B <= min(MAX_NEIGHBORS, N):
+        raise ValueError(f"the fused anchor kernel takes 1 <= B <= {MAX_NEIGHBORS} and B <= N "
+                         f"(got B={B}, N={N})")
+    if N > MAX_N_FUSED:
+        raise ValueError(f"the fused anchor kernel holds the row in shared memory, N <= "
+                         f"{MAX_N_FUSED} (got {N})")
+    per_warp = 4 * (WARP_SCRATCH_WORDS + max(N, B * B))
+    warps = max(1, min(MAX_WARPS, ANCHOR_SMEM_BUDGET // per_warp))
+    return AnchorPlan(warps=warps, smem_bytes=warps * per_warp)
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -284,8 +316,8 @@ def anchor_neighbors(
         rc = lib.saccot_anchor_topb(
             ptr(P), ptr(Q), ptr(anchors), ptr(mask), ptr(anchor_mask), ptr(nbr_s),
             ptr(nbr_idx), ptr(cand), ptr(cand_j), ptr(cand_k), batch, N, A, B, mode,
-            top_t, cand_cols, float(compat_tau), float(np.float32(1.0 / compat_tau)),
-            float(min_separation), stream_of(nbr_s),
+            top_t, cand_cols, anchor_plan(N, B).warps, float(compat_tau),
+            float(np.float32(1.0 / compat_tau)), float(min_separation), stream_of(nbr_s),
         )
         _build.check(rc, counter)
         _build.LAUNCHES[counter] += 1

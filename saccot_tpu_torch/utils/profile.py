@@ -6,8 +6,9 @@ For each point it prints one JSON line: the wall ms per batch (host clock
 around `--reps` batches ending in `torch.cuda.synchronize()`, after one
 warm-up batch), and from `torch.profiler` over `--batches` batches the device
 busy ms per batch (the sum of CUDA kernel times; the port runs on one
-stream), the idle share 1 - busy / wall, the kernels launched per batch and
-the five kernels with the most device time. Needs a CUDA device.
+stream), the idle share 1 - busy / wall, the kernels launched per batch, the
+five kernels with the most device time, and the device ms per batch of each
+hand-written kernel (`csrc/`). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import sys
 import time
 
 import torch
 
 from saccot_tpu_torch.engine.sac_cot import register_batch
+from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch
 from saccot_tpu_torch.utils.params import SacCotParams
 
@@ -46,6 +49,15 @@ POINTS = {
     "kitti-fast": _kitti(dataclasses.replace(KITTI_PARAMS, dedup_triangles=False,
                                              per_anchor_candidates=4)),
 }
+
+
+_KERNEL_NAME = re.compile(r"\(anonymous namespace\)::(\w+)")
+
+
+def own_kernel_names() -> set:
+    """The `__global__` functions of the hand-written kernels (csrc/)."""
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {name for src in _build.sources() for name in decl.findall(src.read_text())}
 
 
 def _device_us(row) -> float:
@@ -74,12 +86,18 @@ def profile_point(name: str, reps: int, batches: int) -> dict:
                if r.device_type == torch.autograd.DeviceType.CUDA and _device_us(r) > 0]
     busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / batches
     top = sorted(kernels, key=_device_us, reverse=True)[:5]
+    names, own = own_kernel_names(), {}
+    for r in kernels:
+        m = _KERNEL_NAME.search(r.key)
+        if m and m.group(1) in names:
+            own[m.group(1)] = own.get(m.group(1), 0.0) + _device_us(r) / 1e3 / batches
     return dict(
         point=name, batch=P.shape[0], n=P.shape[1], wall_ms_per_batch=wall_ms,
         device_busy_ms_per_batch=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
         kernels_per_batch=sum(r.count for r in kernels) / batches,
         top_kernels=[dict(name=r.key[:80], ms_per_batch=_device_us(r) / 1e3 / batches,
                           calls_per_batch=r.count / batches) for r in top],
+        own_kernels_ms_per_batch=own,
     )
 
 

@@ -132,7 +132,7 @@ def test_score_kernel_matches_plain_on_card(case, mode):
     m = torch.from_numpy(case["mask"]).cuda()
     s, c = kscore.score_hypotheses(*args, TAU, mask=m, mode=mode)
     rs, rc = kscore.score_hypotheses_reference(*args, TAU, mask=m, mode=mode)
-    assert (c - rc).abs().max() <= 2
-    assert (c == rc).float().mean() >= 0.999
+    # Every residual operation is rounded on its own on both sides: identical.
+    assert torch.equal(c, rc)
     if mode == "weighted":
         torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-3)
