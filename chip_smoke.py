@@ -13,24 +13,27 @@ Phases (any failure exits non-zero before the result lines are printed):
      tolerances, and the median time of each over CUDA-event-timed reps; the
      fused anchor kernel's selections bit for bit against the streamed
      kernel's (column tiles of 256) and its top-T mode against
-     `candidate_topt` on its own selections; the warps per block of the
-     anchor kernel and the point splits of the score kernel at each shape;
+     `candidate_topt` on its own selections (`hold_anchor`); score's counts
+     identical to the plain version's, its weighted mode within the stated
+     tolerance, bit-identical across two calls and for half the hypotheses
+     scored alone (`hold_score`); the warps per block of the anchor kernel
+     and the point splits of the score kernel at each shape;
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
      during that run, and pairs/s;
   5. the 3DMatch sweep point (32 pairs, seeds 300+s, N=2048, 90% outliers,
      noise 0.01, exact configuration, 15 deg / 0.30 criterion) through the
-     kernels and through the plain versions on the card;
+     kernels and through the plain versions on the card; the fused anchor
+     and score kernels at its shapes (256 anchors, B=16, N=2048; 2,048
+     hypotheses a pair), held as in phase 3;
   6. the large-N kernels against their plain versions at the kitti shapes
      (batch 2, N=50,000, A=512, B=16, T=4, K=2048): the symmetric degree
      kernel (also bit-identical across two calls, and against the two-sided
      kernel), the streamed top-B (also bit-identical to the fused kernel at
      N=3,000 over three column tiles), the candidate top-T (also against the
-     fused kernel's top-T mode), and the solve and score kernels at N=50,000:
-     score's counts identical to the plain version's, its weighted mode
-     within the stated tolerance and bit-identical across two calls, and its
-     counts identical at the SP shard's 25,000 points;
+     fused kernel's top-T mode), and the solve and score kernels at N=50,000,
+     score held as in phase 3 there and at the SP shard's 25,000 points;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
@@ -115,6 +118,94 @@ def off_ties(s, gap):
 def plan_str(plan):
     """One kernel plan as `field=value` pairs."""
     return ", ".join(f"{k}={v}" for k, v in dataclasses.asdict(plan).items())
+
+
+def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
+    """The fused anchor kernel in both modes against its plain version, its
+    selections bit for bit against the streamed kernel's (unchanged, column
+    tiles of 256) and its top-T against `candidate_topt` on its own
+    selections. Returns the worst error of each mode."""
+    import torch
+
+    from saccot_tpu_torch.kernels import triangles as ktri
+
+    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, tile_n=256)
+    errs = {}
+    for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
+        got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
+        ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)
+        # Top-B scores exact to 1e-6: both sides evaluate the one predicate
+        # with the same unfused operations. Indices must agree wherever the
+        # neighbouring scores are not within 1e-6 (ties may swap).
+        err_s = (got[0] - ref[0]).abs().max().item()
+        check(err_s <= 1e-6, f"anchor_topb {mode} at {where}: top-B scores differ by {err_s}")
+        clear = off_ties(ref[0], 1e-6)
+        check(torch.equal(got[1][clear], ref[1][clear]),
+              f"anchor_topb {mode} at {where}: indices differ")
+        # Candidates atol 1e-5 (sums of three scores of equal operations).
+        err_c = (got[2] - ref[2]).abs().max().item()
+        check(err_c <= 1e-5, f"anchor_topb {mode} at {where}: candidates differ by {err_c}")
+        if mode == "topt":
+            clear_t = off_ties(ref[2], 1e-6) & (ref[2] > 0)
+            check(torch.equal(got[3][clear_t], ref[3][clear_t])
+                  and torch.equal(got[4][clear_t], ref[4][clear_t]),
+                  f"anchor_topb topt at {where}: decoded node ids differ")
+            ct = ktri.candidate_topt(got[0], got[1], *ktri.gather_neighbors(P, Q, got[1]), T,
+                                     tau, sep)
+            check(all(torch.equal(x, y) for x, y in zip(ct, got[2:])),
+                  f"anchor_topb topt at {where} differs from candidate_topt on its selections")
+        # The warp-scope selection against the block-scope one: bit for bit,
+        # since the key is a total order.
+        check(torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1]),
+              f"anchor_topb {mode} at {where}: selections differ from anchor_neighbors_stream")
+        errs[mode] = max(err_s, err_c)
+    A, N = anchors.shape[1], P.shape[1]
+    plan = ktri.anchor_plan(N, B)
+    print(f"  anchor_topb at {where} (batch {P.shape[0]}, N={N}, A={A}, B={B}): {plan_str(plan)}, "
+          f"{-(-A // plan.warps)} blocks a pair; scores within 1e-6 of plain; selections "
+          "bit-identical to anchor_neighbors_stream(tile_n=256), top-T to candidate_topt",
+          flush=True)
+    return errs
+
+
+def hold_score(r9, t3, P, Q, tau, where):
+    """The score kernel against its plain version. Counts identical for every
+    hypothesis (each operation of the residual rounded on its own, as the
+    plain version does: no FMA), count-mode scores equal to them. Weighted
+    scores within `weighted_rtol(N)` of the plain version (the same terms,
+    bit for bit, summed in another order), the same bits in two calls and
+    for the second half of the hypotheses scored alone, a tensor-parallel
+    rank's share (the kernel's order of the sums depends on N alone)."""
+    import torch
+
+    from saccot_tpu_torch.kernels import score as kscore
+
+    batch, _, K = r9.shape
+    N = P.shape[1]
+    s, c = kscore.score_hypotheses(r9, t3, P, Q, tau)
+    rc = kscore.score_hypotheses_reference(r9, t3, P, Q, tau)[1]
+    diff = (c - rc).abs()
+    check(diff.max().item() == 0, f"score at {where}: counts identical for "
+          f"{(diff == 0).float().mean().item():.5f}, max diff {diff.max().item()}")
+    check(torch.equal(s, c.float()), f"score at {where}: count-mode scores are not the counts")
+    ws, wc = kscore.score_hypotheses(r9, t3, P, Q, tau, mode="weighted")
+    wr = kscore.score_hypotheses_reference(r9, t3, P, Q, tau, mode="weighted")[0]
+    check(torch.equal(wc, rc), f"score weighted at {where}: counts differ")
+    rtol = kscore.weighted_rtol(N)
+    torch.testing.assert_close(ws, wr, rtol=rtol, atol=0.0)
+    check(torch.equal(ws, kscore.score_hypotheses(r9, t3, P, Q, tau, mode="weighted")[0]),
+          f"score weighted at {where}: two calls differ")
+    h = K // 2
+    half = kscore.score_hypotheses(r9[:, :, h:].contiguous(), t3[:, :, h:].contiguous(), P, Q,
+                                   tau, mode="weighted")[0]
+    check(torch.equal(half, ws[:, h:]),
+          f"score weighted at {where}: hypotheses {h}.. scored alone differ")
+    sms = torch.cuda.get_device_properties(P.device).multi_processor_count
+    print(f"  score at {where} (batch {batch}, K={K}, N={N}): "
+          f"{plan_str(kscore.score_plan(batch, K, N, sms))}; counts identical; weighted "
+          f"max |kernel - plain| {(ws - wr).abs().max().item():.4g} (rtol {rtol:.3g}), "
+          f"bit-identical across two calls and for hypotheses {h}.. alone "
+          f"({plan_str(kscore.score_plan(batch, K - h, N, sms))})", flush=True)
 
 
 def rot_deg(T_a, T_b):
@@ -234,7 +325,6 @@ def main():
           "TF32 is still enabled")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from saccot_tpu_torch import SacCotParams, register_batch
@@ -313,44 +403,13 @@ def main():
         "topt": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 4) * cands,
                  anchor_in + 20 * 128 * A * T),
     }
-    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, tile_n=256)
+    anchor_err = hold_anchor(P, Q, anchors, B, T, tau, sep, "the bench point")
     for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
-        got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
-        ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)
-        # Top-B scores exact to 1e-6: both sides evaluate the one predicate
-        # with the same unfused operations. Indices must agree wherever the
-        # neighbouring scores are not within 1e-6 (ties may swap).
-        err_s = (got[0] - ref[0]).abs().max().item()
-        check(err_s <= 1e-6, f"anchor_topb {mode}: top-B scores differ by {err_s}")
-        clear = off_ties(ref[0], 1e-6)
-        check(torch.equal(got[1][clear], ref[1][clear]), f"anchor_topb {mode}: indices differ")
-        # Candidates atol 1e-5 (sums of three scores of equal operations).
-        err_c = (got[2] - ref[2]).abs().max().item()
-        check(err_c <= 1e-5, f"anchor_topb {mode}: candidates differ by {err_c}")
-        if mode == "topt":
-            clear_t = off_ties(ref[2], 1e-6) & (ref[2] > 0)
-            check(torch.equal(got[3][clear_t], ref[3][clear_t])
-                  and torch.equal(got[4][clear_t], ref[4][clear_t]),
-                  "anchor_topb topt: decoded node ids differ")
-        # The warp-scope selection against the streamed kernel's block-scope
-        # one (unchanged, four column tiles of 256): bit for bit, since the
-        # key is a total order.
-        check(torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1]),
-              f"anchor_topb {mode}: selections differ from anchor_neighbors_stream")
-        if mode == "topt":
-            # The fused top-T against candidate_topt on the fused selections.
-            ct = ktri.candidate_topt(got[0], got[1], *ktri.gather_neighbors(P, Q, got[1]), T,
-                                     tau, sep)
-            check(all(torch.equal(x, y) for x, y in zip(ct, got[2:])),
-                  "anchor_topb topt differs from candidate_topt on its selections")
         row(f"anchor_topb_{mode}", "saccot_tpu_torch/csrc/anchor_topb.cu",
-            "saccot_tpu/kernels/triangles.py:42", max(err_s, err_c),
+            "saccot_tpu/kernels/triangles.py:42", anchor_err[mode],
             time_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)),
             time_ms(lambda: ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)),
             f"anchor_topb_{mode}", anchor_cost[mode])
-    print(f"  anchor_topb at N=1000, B={B}: {plan_str(ktri.anchor_plan(1000, B))}; selections "
-          "bit-identical to anchor_neighbors_stream(tile_n=256), top-T to candidate_topt",
-          flush=True)
 
     pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, exact, impl="plain")
     triples = pool.triples
@@ -365,23 +424,13 @@ def main():
         time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
         solve_cost(128, 1000, triples.shape[1]))
 
-    _, counts = kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)
-    _, counts_ref = kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q, fast.inlier_tau)
-    # Counts identical for every hypothesis: the kernel rounds each operation
-    # of the residual on its own, as the plain version does (no FMA).
-    diff = (counts - counts_ref).abs()
-    same = (diff == 0).float().mean().item()
-    check(diff.max().item() == 0,
-          f"score: counts identical for {same:.5f}, max diff {diff.max().item()}")
-    row("score", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31",
-        float(diff.max().item()),
+    hold_score(r9_ref, t3_ref, P, Q, fast.inlier_tau, "the bench point")
+    row("score", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q,
                                                           fast.inlier_tau)), "score",
         score_cost(128, 1000, r9_ref.shape[2]))
-    print(f"  score at batch 128, K={r9_ref.shape[2]}, N=1000: "
-          f"{plan_str(kscore.score_plan(128, r9_ref.shape[2], 1000, sms))}", flush=True)
-    print(f"phase 3 ok: counts identical for {same:.5f} of hypotheses", flush=True)
+    print("phase 3 ok", flush=True)
 
     # -- phase 4: the main path at the bench point ---------------------------
     _build.reset_launches()
@@ -419,9 +468,16 @@ def main():
     rec_k = recall(register_batch(P3, Q3, tdm), T3, 15.0, 0.30)
     rec_p = recall(register_batch(P3, Q3, tdm, impl="plain"), T3, 15.0, 0.30)
     check(abs(rec_k - rec_p) <= 1 / 32, f"3DMatch recall: kernels {rec_k}, plain {rec_p}")
-    print(f"  3DMatch plans: anchor_topb at N=2048, B=16: {plan_str(ktri.anchor_plan(2048, 16))}; "
-          f"score at batch 32, K=2048, N=2048: {plan_str(kscore.score_plan(32, 2048, 2048, sms))}",
-          flush=True)
+    # The two redesigned kernels at the shapes this point gives them: 256
+    # anchors in blocks of anchor_plan(2048, 16) warps (a ragged last block),
+    # and 2,048 hypotheses a pair against 2,048 points in several splits.
+    deg3 = kcompat.degrees_reference(P3, Q3, P3, Q3, tdm)
+    _, anc3 = ktri.topk_stable(deg3, tdm.num_anchors)
+    hold_anchor(P3, Q3, anc3, tdm.neighbors_per_anchor, 4, tdm.compat_tau, tdm.min_separation,
+                "the 3DMatch point")
+    pool3 = tri_mod.triangle_pool_from_points(P3, Q3, deg3, tdm, impl="plain")
+    hold_score(*ksolve.solve3_reference(P3, Q3, pool3.triples), P3, Q3, tdm.inlier_tau,
+               "the 3DMatch point")
     print(f"phase 5 ok: 3DMatch recall kernels {rec_k:.4f}, plain {rec_p:.4f}", flush=True)
 
     # -- phase 6: the large-N kernels vs plain versions at the kitti shapes --
@@ -517,49 +573,20 @@ def main():
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
         time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3",
         solve_cost(2, 50000, ktrip.shape[1]))
-    _, counts = kscore.score_hypotheses(r9_ref, t3_ref, PK, QK, kp.inlier_tau)
-    _, counts_ref = kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK, kp.inlier_tau)
-    diff = (counts - counts_ref).abs()
-    same = (diff == 0).float().mean().item()
-    check(diff.max().item() == 0,
-          f"score at N=50000: counts identical for {same:.5f}, max diff {diff.max().item()}")
-    row("score_large_n", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31",
-        float(diff.max().item()),
+    kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
+    hold_score(*kargs, "kitti")
+    row("score_large_n", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, PK, QK, kp.inlier_tau),
                 reps=10),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK,
                                                           kp.inlier_tau), **big), "score",
         score_cost(2, 50000, r9_ref.shape[2]))
-    Kk = r9_ref.shape[2]
-    kplan = kscore.score_plan(2, Kk, 50000, sms)
-    print(f"  score at batch 2, K={Kk}, N=50000: {plan_str(kplan)}", flush=True)
-    # Weighted mode at kitti: every term is the plain version's bit for bit
-    # (the same rounded operations and IEEE root); only the order of the sums
-    # differs. Both add non-negative terms, so each side's relative error is
-    # at most u = 2^-24 per addition made in sequence: the kernel adds a chunk
-    # (1,516 points) and then the splits (33); torch's reduction fewer than
-    # 1,000 per thread and its tree. rtol (chunk + splits + 1,000) u, atol 0.
-    # Two calls give the same bits (the splits and their order are fixed).
-    kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
-    ws, wc = kscore.score_hypotheses(*kargs, mode="weighted")
-    wr, wrc = kscore.score_hypotheses_reference(*kargs, mode="weighted")
-    check(torch.equal(wc, wrc), "score weighted at N=50000: counts differ")
-    rtol_w = (kplan.chunk + kplan.splits + 1000) * 2.0 ** -24
-    torch.testing.assert_close(ws, wr, rtol=rtol_w, atol=0.0)
-    ws2 = kscore.score_hypotheses(*kargs, mode="weighted")[0]
-    check(torch.equal(ws, ws2), "score weighted at N=50000: two calls differ")
     weighted_ms = time_ms(lambda: kscore.score_hypotheses(*kargs, mode="weighted"), reps=10)
-    print(f"  score weighted at N=50000: max |kernel - plain| "
-          f"{(ws - wr).abs().max().item():.4g} (rtol {rtol_w:.3g}), two calls bit-identical, "
-          f"{weighted_ms:.4f} ms", flush=True)
-    # The SP shard's points (the first 25,000 of each pair): counts identical.
-    sh = (r9_ref, t3_ref, PK[:, :25000].contiguous(), QK[:, :25000].contiguous(),
-          kp.inlier_tau)
-    check(torch.equal(kscore.score_hypotheses(*sh)[1], kscore.score_hypotheses_reference(*sh)[1]),
-          "score at the SP shard (N=25000): counts differ")
-    print(f"  score at the SP shard, N=25000: {plan_str(kscore.score_plan(2, Kk, 25000, sms))}, "
-          "counts identical", flush=True)
-    print(f"phase 6 ok: score counts identical for {same:.5f} of hypotheses", flush=True)
+    print(f"  score weighted at kitti: {weighted_ms:.4f} ms", flush=True)
+    # The SP shard's points (the first 25,000 of each pair).
+    hold_score(r9_ref, t3_ref, PK[:, :25000].contiguous(), QK[:, :25000].contiguous(),
+               kp.inlier_tau, "the SP shard")
+    print("phase 6 ok", flush=True)
 
     # -- phase 7: register_batch at the kitti configuration --------------------
     rot_deg_k, trans_m = KITTI_CRITERION

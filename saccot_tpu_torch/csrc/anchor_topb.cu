@@ -176,7 +176,8 @@ anchor_topb_kernel(const float* __restrict__ P, const float* __restrict__ Q,
 }  // namespace
 
 // `warps` anchors per block (1..8); dynamic shared memory is warps x
-// (sizeof(WarpScratch) + 4 max(N, B*B)) bytes.
+// (sizeof(WarpScratch) + 4 max(N, B*B)) bytes, which anchor_plan keeps within
+// the 48 KB a block gets without an opt-in.
 extern "C" int saccot_anchor_topb(const void* P, const void* Q, const void* anchors,
                                   const void* mask, const void* anchor_mask,
                                   void* nbr_s, void* nbr_idx, void* cand, void* cand_j,
@@ -189,12 +190,6 @@ extern "C" int saccot_anchor_topb(const void* P, const void* Q, const void* anch
     const dim3 grid((A + warps - 1) / warps, batch);
     const size_t smem = static_cast<size_t>(warps)
                         * (sizeof(WarpScratch) + sizeof(float) * region_floats(N, B));
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            anchor_topb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
     anchor_topb_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(P), static_cast<const float*>(Q),
         static_cast<const long long*>(anchors), static_cast<const float*>(mask),

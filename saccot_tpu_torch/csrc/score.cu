@@ -23,14 +23,20 @@
 //   - Where the hypothesis tiles alone do not fill the card (kitti: 8 tiles
 //     x batch 2 = 16 blocks on 132 SMs), the wrapper splits the point axis
 //     into contiguous chunks, one per blockIdx.y (kernels/score.py
-//     score_plan). Each split writes its partial counts and weights to a
-//     scratch [batch, splits, K]; the last block of a hypothesis tile to
-//     finish (a __threadfence and an atomic ticket per tile) sums the splits
-//     in split order and writes the result, in the same launch. Counts are
-//     integers; weights come out the same bits on every call, since the
-//     splits and their order depend only on (batch, K, N) and the SM count.
-//     The wrapper zeroes the tickets with torch.zeros: one small fill
-//     kernel before each launch that splits.
+//     score_plan). Each split writes its partial counts to a scratch
+//     [batch, splits, K]; the last block of a hypothesis tile to finish (a
+//     __threadfence and an atomic ticket per tile) sums them and writes the
+//     result, in the same launch, then puts the ticket back to 0, so the
+//     wrapper keeps one zeroed ticket buffer per stream and launches nothing
+//     else.
+//   - Weights are summed in an order fixed by N alone: each segment of
+//     kPointTile points (segment s holds points [s kPointTile, (s + 1)
+//     kPointTile)) in point order from 0, then the segments in order. A
+//     split's chunk is a whole number of segments and writes one partial per
+//     segment to a scratch [batch, N / kPointTile, K]; one split adds its
+//     segments in registers. So a hypothesis's weight has the same bits at any
+//     batch, K, split count or SM count: a tensor-parallel rank that scores
+//     K / 2 hypotheses agrees with one rank that scores all K.
 //   - `weighted` and "has a mask" are template parameters: the count-mode
 //     loop has no branch.
 // The residual is formed as ((t - q) + r0 p0) + r1 p1 + r2 p2, the TPU
@@ -46,7 +52,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kHyp = 2;                       // hypotheses per thread
 constexpr int kHypTile = kThreads * kHyp;     // hypotheses per block
-constexpr int kPointTile = 512;
+constexpr int kPointTile = 256;               // also the weights' summation segment
 
 using saccot::add_rn;
 using saccot::mul_rn;
@@ -94,6 +100,8 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
     const int n_begin = split * chunk;
     const int n_end = min(N, n_begin + chunk);
 
+    const long long out_b = static_cast<long long>(b) * K;
+    const int segs = (N + kPointTile - 1) / kPointTile;
     int count[kHyp];
     float wsum[kHyp];
 #pragma unroll
@@ -107,6 +115,9 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
             sqm[i] = make_float4(Qb[o + 1], Qb[o + 2], kMasked ? mb[n0 + i] : 1.0f, 0.0f);
         }
         __syncthreads();
+        float wseg[kHyp];
+#pragma unroll
+        for (int h = 0; h < kHyp; ++h) wseg[h] = 0.0f;
 #pragma unroll 4
         for (int i = 0; i < n; ++i) {
             const float4 a = spq[i];
@@ -120,14 +131,26 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
                 const float d2 = add_rn(add_rn(mul_rn(x0, x0), mul_rn(x1, x1)), mul_rn(x2, x2));
                 count[h] += (live && d2 < tau2) ? 1 : 0;
                 if (kWeighted && live) {
-                    wsum[h] += fmaxf(0.0f, sub_rn(1.0f, mul_rn(__fsqrt_rn(d2), inv_tau)));
+                    wseg[h] += fmaxf(0.0f, sub_rn(1.0f, mul_rn(__fsqrt_rn(d2), inv_tau)));
+                }
+            }
+        }
+        if (kWeighted) {
+            // This tile is segment n0 / kPointTile (chunks are whole segments).
+            const long long seg = (static_cast<long long>(b) * segs + n0 / kPointTile) * K;
+#pragma unroll
+            for (int h = 0; h < kHyp; ++h) {
+                const int k = tile * kHypTile + h * kThreads + threadIdx.x;
+                if (splits == 1) {
+                    wsum[h] = add_rn(wsum[h], wseg[h]);
+                } else if (k < K) {
+                    part_w[seg + k] = wseg[h];
                 }
             }
         }
         __syncthreads();
     }
 
-    const long long out_b = static_cast<long long>(b) * K;
     if (splits == 1) {
 #pragma unroll
         for (int h = 0; h < kHyp; ++h) {
@@ -140,15 +163,13 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
         return;
     }
 
-    // This split's partial sums, then the tile's ticket.
+    // This split's partial counts (its segments' weights are written), then
+    // the tile's ticket.
     const long long part = (static_cast<long long>(b) * splits + split) * K;
 #pragma unroll
     for (int h = 0; h < kHyp; ++h) {
         const int k = tile * kHypTile + h * kThreads + threadIdx.x;
-        if (k < K) {
-            part_c[part + k] = count[h];
-            if (kWeighted) part_w[part + k] = wsum[h];
-        }
+        if (k < K) part_c[part + k] = count[h];
     }
     __threadfence();
     __syncthreads();
@@ -158,18 +179,25 @@ score_kernel(const float* __restrict__ r9, const float* __restrict__ t3,
     if (!is_last) return;
 
     // The last block of the tile: every split's partials are visible (each
-    // writer fenced before taking its ticket); read them past L1, in split order.
+    // writer fenced before taking its ticket); read them past L1, the weights
+    // in segment order. Every block of the tile has taken its ticket, so it
+    // goes back to 0 for the next launch on this stream.
+    if (threadIdx.x == 0) *ticket = 0;
     __threadfence();
 #pragma unroll
     for (int h = 0; h < kHyp; ++h) {
         const int k = tile * kHypTile + h * kThreads + threadIdx.x;
         if (k < K) {
             int c = 0;
-            float w = 0.0f;
             for (int s = 0; s < splits; ++s) {
-                const long long o = (static_cast<long long>(b) * splits + s) * K + k;
-                c += __ldcg(part_c + o);
-                if (kWeighted) w = add_rn(w, __ldcg(part_w + o));
+                c += __ldcg(part_c + (static_cast<long long>(b) * splits + s) * K + k);
+            }
+            float w = 0.0f;
+            if (kWeighted) {
+#pragma unroll 8
+                for (int s = 0; s < segs; ++s) {
+                    w = add_rn(w, __ldcg(part_w + (static_cast<long long>(b) * segs + s) * K + k));
+                }
             }
             counts[out_b + k] = c;
             scores[out_b + k] = kWeighted ? w : static_cast<float>(c);
@@ -189,8 +217,10 @@ void launch(const dim3& grid, cudaStream_t stream, const float* r9, const float*
 
 }  // namespace
 
-// splits > 1 needs part_c (and part_w in weighted mode) of [batch, splits, K]
-// and tickets of [batch, ceil(K / 256)] ints that are zero.
+// splits > 1 needs a chunk that is a multiple of 256 points, part_c of
+// [batch, splits, K], in weighted mode part_w of [batch, ceil(N / 256), K],
+// and tickets of [batch, ceil(K / 256)] ints that are zero (they are zero
+// again when the launch ends).
 extern "C" int saccot_score(const void* r9, const void* t3, const void* P, const void* Q,
                             const void* mask, void* scores, void* counts, void* part_c,
                             void* part_w, void* tickets, int batch, int N, int K, int splits,

@@ -21,17 +21,19 @@ from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, str
 
 
 # The kernel's block: 128 threads, two hypotheses each (csrc/score.cu kThreads,
-# kHyp).
+# kHyp). Weights are summed over SEGMENT points at a time (kPointTile), then
+# segment by segment, so a split's chunk is a whole number of segments.
 THREADS = 128
 HYP_PER_THREAD = 2
 HYP_TILE = THREADS * HYP_PER_THREAD
+SEGMENT = 256
 # A hypothesis grid of at least FULL_BLOCKS_PER_SM blocks a SM (12 warps)
 # fills the card and takes one split; a smaller one splits the point axis
-# until it has SPLIT_BLOCKS_PER_SM blocks a SM (16 warps, all resident at
-# once), into chunks of at least MIN_SPLIT_POINTS points.
+# into the largest chunks of whole segments that give at least
+# SPLIT_BLOCKS_PER_SM blocks a SM (16 warps, all resident at once), or into
+# single segments where N has too few.
 FULL_BLOCKS_PER_SM = 3
 SPLIT_BLOCKS_PER_SM = 4
-MIN_SPLIT_POINTS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,16 +59,39 @@ def score_plan(batch: int, K: int, N: int, sms: int) -> ScorePlan:
     on a card with `sms` SMs."""
     tiles = _cdiv(K, HYP_TILE)
     base = max(1, tiles * batch)
-    splits = 1
-    if base < FULL_BLOCKS_PER_SM * sms:
-        splits = max(1, min(_cdiv(SPLIT_BLOCKS_PER_SM * sms, base),
-                            _cdiv(N, MIN_SPLIT_POINTS)))
-    chunk = max(1, _cdiv(N, splits))
-    return ScorePlan(batch=batch, tiles=tiles, splits=max(1, _cdiv(N, chunk)), chunk=chunk)
+    segments = _cdiv(N, SEGMENT)
+    if base >= FULL_BLOCKS_PER_SM * sms or segments <= 1:
+        return ScorePlan(batch=batch, tiles=tiles, splits=1, chunk=max(1, N))
+    want = _cdiv(SPLIT_BLOCKS_PER_SM * sms, base)    # >= 2 here
+    # cdiv(N, chunk) >= want  <=>  chunk * (want - 1) < N
+    chunk = SEGMENT * max(1, (N - 1) // (SEGMENT * (want - 1)))
+    return ScorePlan(batch=batch, tiles=tiles, splits=_cdiv(N, chunk), chunk=chunk)
+
+
+def weighted_rtol(N: int) -> float:
+    """Relative distance allowed between the kernel's weighted scores and
+    torch's sum of the same non-negative terms: each side's error is at most
+    u = 2^-24 per addition made in sequence. The kernel adds at most SEGMENT
+    terms, then ceil(N / SEGMENT) segments; torch's reduction fewer than
+    1,000 per thread, then its tree."""
+    return (SEGMENT + _cdiv(N, SEGMENT) + 1000) * 2.0 ** -24
 
 
 def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# The splitting launches' tickets, one buffer per (device, stream): the kernel
+# leaves every ticket it takes at 0, so the buffer is zeroed once, when it is
+# made or outgrown.
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _TICKETS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[(dev, stream)] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
 
 
 def _check_hyp(x: torch.Tensor, rows: int, batch: int, name: str) -> torch.Tensor:
@@ -127,20 +152,20 @@ def score_hypotheses(
         return scores, counts
     weighted = mode == "weighted"
     plan = score_plan(batch, K, N, sm_count(dev))
+    stream = stream_of(scores)
     part_c = part_w = tickets = None
     if plan.splits > 1:
         part_c = torch.empty((batch, plan.splits, K), dtype=torch.int32, device=dev)
         if weighted:
-            part_w = torch.empty((batch, plan.splits, K), dtype=torch.float32, device=dev)
+            part_w = torch.empty((batch, _cdiv(N, SEGMENT), K), dtype=torch.float32, device=dev)
         # One ticket per (batch, hypothesis tile); the tile's last block sums
         # the splits.
-        tickets = torch.zeros((batch, plan.tiles), dtype=torch.int32, device=dev)
+        tickets = _tickets(dev, stream, batch * plan.tiles)
     lib = _build.library()
     rc = lib.saccot_score(
         ptr(r9), ptr(t3), ptr(P), ptr(Q), ptr(mask), ptr(scores), ptr(counts), ptr(part_c),
         ptr(part_w), ptr(tickets), batch, N, K, plan.splits, plan.chunk,
-        float(np.float32(tau * tau)), float(np.float32(1.0 / tau)), int(weighted),
-        stream_of(scores),
+        float(np.float32(tau * tau)), float(np.float32(1.0 / tau)), int(weighted), stream,
     )
     _build.check(rc, "score")
     _build.LAUNCHES["score"] += 1
