@@ -10,14 +10,17 @@ Phases (any failure exits non-zero before the result lines are printed):
      started together, then one link);
   3. each kernel against its plain PyTorch version on the card, at the bench
      shapes (batch 128, N=1000, A=256, B=12, K=1024), with the stated
-     tolerances, and the median time of each over CUDA-event-timed reps; the
+     tolerances, and the median time of each over CUDA-event-timed reps
+     (the degree kernels also their device time from the profiler); the
      fused anchor kernel's selections bit for bit against the streamed
      kernel's (column tiles of 256) and its top-T mode against
      `candidate_topt` on its own selections (`hold_anchor`); score's counts
      identical to the plain version's, its weighted mode within the stated
      tolerance, bit-identical across two calls and for half the hypotheses
      scored alone (`hold_score`); the warps per block of the anchor kernel
-     and the point splits of the score kernel at each shape;
+     and the point splits of the score kernel at each shape, and the
+     two-sided degree loop's `degree_plan` (rows a thread, column splits)
+     at every degree shape of phases 3, 6, 8 and 10;
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
@@ -43,7 +46,11 @@ Phases (any failure exits non-zero before the result lines are printed):
      the symmetric kernel's degrees and bit for bit across two calls; at the
      bench shapes (d = 2) against `degrees(mxu=False)`; the direct route
      against the plain degrees at the bench shapes and at the 3DMatch point's
-     sharded shape; CUDA-event times of one step;
+     sharded shape; the one loop's bit identities: the SP row slice and a
+     batch slice of the 3DMatch point against the full call, which other
+     grids (rows a thread, split counts) repeat too, and a ring step at
+     d = 1 on a zeroed deg against the direct route at the bench, 3DMatch
+     and kitti points; CUDA-event times of one step;
   9. the distributed estimator on two spawned ranks (`dist/local.run_ranks`;
      NCCL with a card per rank when there are two cards, else gloo on the one
      card): DP over pairs and TP over hypotheses at the bench point, SP with
@@ -66,6 +73,7 @@ JSON table of the kernels; the last line is
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -118,6 +126,16 @@ def off_ties(s, gap):
 def plan_str(plan):
     """One kernel plan as `field=value` pairs."""
     return ", ".join(f"{k}={v}" for k, v in dataclasses.asdict(plan).items())
+
+
+def degree_plan_str(batch, R, C):
+    """`degree_plan` of batch x R rows against C columns on card 0."""
+    import torch
+
+    from saccot_tpu_torch.kernels import compat as kcompat
+
+    plan = kcompat.degree_plan(batch, R, C, kcompat.sm_count(torch.device("cuda", 0)))
+    return f"{plan_str(plan)}, {plan.blocks} blocks"
 
 
 def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
@@ -337,6 +355,7 @@ def main():
     from saccot_tpu_torch.utils.convert import (
         KITTI_CRITERION, KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch, recall,
     )
+    from saccot_tpu_torch.utils.profile import kernel_device_ms
 
     # -- phase 2: build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -353,6 +372,16 @@ def main():
     for name in ("score_kernel", "anchor_topb_kernel"):
         for fn, loops in sass_loops(name).items():
             print(f"  sass {fn[fn.index(name):][:40]}: loop bodies {loops[:4]} instructions")
+    # The one two-sided degree loop in its production instances (the direct
+    # routes and the ring step, each at 2 and 1 rows a thread): a column
+    # segment (staging, both sweeps, the segment sum), then the sweep with
+    # and without the i != j test, 2 columns x the rows a pass.
+    for fn, loops in sass_loops("two_sided_degrees_kernel").items():
+        if "CompatScore" in fn:
+            src = "ring_degrees" if "ring_degrees_cu" in fn else "compat_degrees"
+            rows = re.search(r"two_sided_degrees_kernelILi(\d)E", fn).group(1)
+            print(f"  sass two_sided_degrees_kernel ({src}.cu, {rows} rows a thread): "
+                  f"loop bodies {loops[:4]} instructions")
 
     # -- phase 3: kernels vs plain versions at the bench shapes ------------
     fast = SacCotParams(
@@ -375,13 +404,15 @@ def main():
     def score_cost(b, n, k):
         return SCORE_OPS * b * k * n, 24 * b * n + 48 * b * k + 8 * b * k
 
-    def row(name, source, replaces, err, ms, plain_ms, counter, cost):
+    def row(name, source, replaces, err, ms, plain_ms, counter, cost, **extra):
         b_ms, b_by = bound_ms(*cost)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          counter=counter, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+        more = "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k}: {v}"
+                       for k, v in extra.items())
         print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}){more}", flush=True)
 
     # Degrees: rtol 1e-5, atol 1e-3 — the kernel sums each row in column
     # order, the plain version in torch's reduction order.
@@ -392,7 +423,9 @@ def main():
         "saccot_tpu/kernels/compat.py:96", (deg - deg_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(P, Q, P, Q, fast)),
         time_ms(lambda: kcompat.degrees_reference(P, Q, P, Q, fast)), "compat_degrees",
-        degrees_cost(128, 1000, 1000, same=True))
+        degrees_cost(128, 1000, 1000, same=True),
+        device_ms=kernel_device_ms(lambda: kcompat.degrees(P, Q, P, Q, fast)),
+        plan=degree_plan_str(128, 1000, 1000))
 
     _, anchors = ktri.topk_stable(deg_ref, A)
     cands = 128 * A * B * (B - 1) // 2
@@ -508,7 +541,8 @@ def main():
         "compat_degrees_tri",
         ((PAIR_OPS + 1) * 2 * 50000 * 49999 // 2, 4 * 2 * 50000 * 7))
     print(f"  compat_degrees two-sided kernel at the same shape: {two_sided_ms:.4f} ms, "
-          f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g}", flush=True)
+          f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g} "
+          f"({degree_plan_str(2, 50000, 50000)})", flush=True)
 
     # Streamed top-B: scores within 1e-6 of the plain version (the same
     # predicate, the same operations) and indices equal off ties; ties at the
@@ -661,8 +695,10 @@ def main():
               f"ring_degrees at d={d}: two runs differ")
         err = (got - ref).abs().max().item()
         ring_err = err if d == 2 else ring_err
+        n = 50000 // d
         print(f"  ring sums at kitti, d={d}: max |kernel - plain| {err:.3g}, "
-              f"max |kernel - tri| {(got - deg_tri).abs().max().item():.3g}", flush=True)
+              f"max |kernel - tri| {(got - deg_tri).abs().max().item():.3g} "
+              f"(step {degree_plan_str(2, n, n)})", flush=True)
     # Bench shapes, d = 2: the ring sums against the direct-form route.
     _build.reset_launches()
     direct = kcompat.degrees(P, Q, P, Q, fast, mxu=False)
@@ -672,6 +708,17 @@ def main():
                                rtol=1e-5, atol=1e-3)
     bench_ring, bench_blocks = ring_sums(P, Q, fast, 2, kring.ring_degrees_step)
     torch.testing.assert_close(bench_ring, direct, rtol=1e-5, atol=1e-3)
+
+    # The one loop: a ring step at d = 1 over the rank's own block adds its
+    # row sums to a zeroed deg, so it gives the direct route's bits; the sum
+    # order is fixed by C alone, so plans of other split counts agree too.
+    def ring_d1(Pb, Qb, params):
+        return kring.ring_degrees_step(kring.pack_block(Pb, Qb),
+                                       kring.pack_block(Pb, Qb),
+                                       torch.zeros(Pb.shape[:2], device=dev), 0, 0, params)
+
+    check(torch.equal(ring_d1(P, Q, fast), direct),
+          "ring step at d=1 differs from the direct route at the bench point")
     # The direct route at the shape SP hands it in phase 9 (d): the 3DMatch
     # point's second half of the rows against all 2,048 columns.
     h = 1024
@@ -679,11 +726,37 @@ def main():
     sp_direct = kcompat.degrees(*sp_args, row_offset=h, mxu=False)
     sp_ref = kcompat.degrees_reference(*sp_args, row_offset=h)
     torch.testing.assert_close(sp_direct, sp_ref, rtol=1e-5, atol=1e-3)
+    full3 = kcompat.degrees(P3, Q3, P3, Q3, tdm, mxu=False)
+    check(torch.equal(sp_direct, full3[:, h:]),
+          "direct route: the SP row slice differs from the full call's rows")
+    # Other grids than degree_plan's: 1 and 2 rows a thread, 1, 3 and 8 splits.
+    for rows3, splits3 in ((1, 1), (2, 1), (1, 3), (2, 8)):
+        other = kcompat.DegreePlan(batch=32, rows=rows3, tiles=-(-2048 // (128 * rows3)),
+                                   splits=splits3, segments=8)
+        check(torch.equal(kcompat._two_sided(P3, Q3, P3, Q3, tdm, 0, None, None,
+                                             "compat_degrees_direct", plan=other), full3),
+              f"direct route: the plan {plan_str(other)} changes the bits")
+    part3 = kcompat.degrees(P3[:8], Q3[:8], P3[:8], Q3[:8], tdm, mxu=False)
+    check(torch.equal(part3, full3[:8]),
+          "direct route: a batch slice differs from the full call's pairs")
+    check(torch.equal(ring_d1(P3, Q3, tdm), full3),
+          "ring step at d=1 differs from the direct route at the 3DMatch point")
+    kdirect = kcompat.degrees(PK, QK, PK, QK, kp, mxu=False)
+    check(torch.equal(ring_d1(PK, QK, kp), kdirect),
+          "ring step at d=1 differs from the direct route at kitti")
+    print(f"  one loop: SP row slice ({degree_plan_str(32, 2048 - h, 2048)}) and batch slice "
+          f"({degree_plan_str(8, 2048, 2048)}) bit-identical to the full call "
+          f"({degree_plan_str(32, 2048, 2048)}), as are its grids of 1 or 2 rows and 1, 3 or "
+          "8 splits; ring step at d=1 bit-identical to the "
+          f"direct route at the bench ({degree_plan_str(128, 1000, 1000)}), 3DMatch and "
+          f"kitti ({degree_plan_str(2, 50000, 50000)}) points", flush=True)
     row("compat_degrees_direct", "saccot_tpu_torch/csrc/compat_degrees.cu",
         "saccot_tpu/kernels/compat.py:53", (sp_direct - sp_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(*sp_args, row_offset=h, mxu=False)),
         time_ms(lambda: kcompat.degrees_reference(*sp_args, row_offset=h)),
-        "compat_degrees_direct", degrees_cost(32, 2048 - h, 2048))
+        "compat_degrees_direct", degrees_cost(32, 2048 - h, 2048),
+        device_ms=kernel_device_ms(lambda: kcompat.degrees(*sp_args, row_offset=h, mxu=False)),
+        plan=degree_plan_str(32, 2048 - h, 2048))
     # One step at kitti d = 2 (25,000 x 25,000 per pair) and at the bench, d = 2.
     _, kblocks = ring_sums(PK, QK, kp, 2, kring.ring_degrees_step)
     scratch = torch.zeros((2, 25000), device=dev)
@@ -696,10 +769,12 @@ def main():
         "saccot_tpu/kernels/ring_compat.py:53", ring_err,
         time_ms(lambda: kring.ring_degrees_step(*step_args), reps=10),
         time_ms(lambda: kring.ring_degrees_step_reference(*step_args), **big), "ring_degrees",
-        (PAIR_OPS * 2 * 25000 * 25000, 2 * 28 * 2 * 25000 + 8 * 2 * 25000))
+        (PAIR_OPS * 2 * 25000 * 25000, 2 * 28 * 2 * 25000 + 8 * 2 * 25000),
+        device_ms=kernel_device_ms(lambda: kring.ring_degrees_step(*step_args)),
+        plan=degree_plan_str(2, 25000, 25000))
     print(f"  ring_degrees step at the bench, d=2: kernel {bench_ms:.4f} ms, "
           f"plain {bench_plain_ms:.4f} ms, bound {bound_ms(PAIR_OPS * 128 * 500 * 500, 0)[0]:.4f} "
-          "ms (operations)", flush=True)
+          f"ms (operations); {degree_plan_str(128, 500, 500)}", flush=True)
     print("phase 8 ok", flush=True)
 
     # -- phase 9: the distributed estimator on two ranks --------------------
@@ -787,6 +862,8 @@ def main():
     # N=3,000 (the ragged edge: 3,000 is no multiple of 128 or 256), rtol
     # 1e-5: the same operations on each pair, row sums in another order.
     P1, Q1, _ = kitti_problem_batch([KITTI_SEED], device=dev, n=3000)
+    print(f"  two-sided form at N=3000: {degree_plan_str(1, 3000, 3000)}; at N=50000: "
+          f"{degree_plan_str(1, 50000, 50000)}", flush=True)
     for form in kops.FORMS:
         for mode in kops.MODES:
             hold_variant(P1, Q1, kops.variant_degrees(P1, Q1, kp, mode, form),
@@ -820,6 +897,9 @@ def main():
     plain_ms = {form: time_ms(lambda: kops.variant_degrees_reference(PX, QX, kp, "full", form),
                               reps=3, warmup=1)
                 for form in kops.FORMS}
+    full_device_ms = {form: kernel_device_ms(lambda: kops.variant_degrees(PX, QX, kp, "full", form),
+                                             reps=5)
+                      for form in kops.FORMS}
     # The script's path at N=50,000, counted.
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -839,6 +919,7 @@ def main():
             replaces="scripts/exp_compat_ops.py:40", launches=n, max_abs_err=full_err[form],
             ms=next(r["ms"] for r in attr if r["form"] == form and r["mode"] == "full"),
             plain_ms=plain_ms[form], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=full_device_ms[form],
             mode_ms={r["mode"]: r["ms"] for r in attr if r["form"] == form}))
     print(f"phase 10 ok: launches {ops_launches}", flush=True)
 

@@ -30,8 +30,11 @@
 // (masks, i != j test), so a mode's time differs from another's only by the
 // operations the mode adds, and `full` (Variant<kFull> calls the production
 // CompatScore) is the production degree by construction:
-//   two-sided: 128 rows per block, one row per thread, 256-column SoA tiles
-//     in shared memory, row sums in column order;
+//   two-sided: kThreads threads a block holding 1 or 2 rows each, the column
+//     segments split across blocks, both from kernels/compat.py degree_plan
+//     as for compat_degrees.cu; float4 column segments of 256 in shared
+//     memory; each row summed in column order within a segment, then segment
+//     by segment (in the launch's last block of the row tile when split);
 //   tri: 128 x 128 upper-triangle tile pairs, float4 column tiles, row sums
 //     in registers, column sums by the warp butterfly, per-tile partials
 //     summed in tile order by a second pass.
@@ -95,34 +98,36 @@ struct Variant {
 };
 
 template <int MODE>
-int launch(const float* P, const float* Q, float* part, float* deg, int batch, int N,
-           int n_tiles, bool tri, const Consts& k, cudaStream_t s) {
+int launch(const float* P, const float* Q, float* part, int* tickets, float* deg, int batch,
+           int N, int n_tiles, bool tri, int rows_per_thread, int splits, const Consts& k,
+           cudaStream_t s) {
     const Variant<MODE> value{k};
     if (tri) return launch_tri<false>(P, Q, nullptr, part, deg, batch, N, n_tiles, value, s);
-    return launch_two_sided<false>(P, Q, P, Q, nullptr, nullptr, deg, batch, N, N, 0, value, s);
+    const PointsView pts{P, Q, nullptr, N};
+    return launch_two_sided<false>(pts, pts, batch, N, N, 0, 0, rows_per_thread, splits, part,
+                                   tickets, value, StoreSums{deg, N}, s);
 }
 
 }  // namespace
 
 // mode: 0 gram_only, 1 d2_only, 2 one_sqrt, 3 no_sqrt_tail, 4 full.
 // tri != 0 takes the upper-triangle form; part is then scratch of
-// batch * n_tiles * N floats, n_tiles = ceil(N / 128) (unused otherwise).
+// batch * n_tiles * N floats, n_tiles = ceil(N / 128). The two-sided form
+// takes rows_per_thread and splits of degree_plan; with splits > 1, part of
+// [batch, ceil(N / 256), N] floats and tickets of batch * row tiles zeroed
+// ints (launch_two_sided).
 extern "C" int saccot_compat_ops(const void* P, const void* Q, void* part, void* deg,
                                  int batch, int N, int n_tiles, int mode, int tri, float tau,
                                  float inv_tau, float min_sep, float inv_tau2, float min_sep2,
-                                 void* stream) {
-    const Consts k{tau, inv_tau, min_sep, inv_tau2, min_sep2};
-    const auto* p = static_cast<const float*>(P);
-    const auto* q = static_cast<const float*>(Q);
-    auto* pt = static_cast<float*>(part);
-    auto* d = static_cast<float*>(deg);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case kGramOnly: return launch<kGramOnly>(p, q, pt, d, batch, N, n_tiles, tri, k, s);
-        case kD2Only: return launch<kD2Only>(p, q, pt, d, batch, N, n_tiles, tri, k, s);
-        case kOneSqrt: return launch<kOneSqrt>(p, q, pt, d, batch, N, n_tiles, tri, k, s);
-        case kNoSqrtTail: return launch<kNoSqrtTail>(p, q, pt, d, batch, N, n_tiles, tri, k, s);
-        case kFull: return launch<kFull>(p, q, pt, d, batch, N, n_tiles, tri, k, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+                                 int rows_per_thread, int splits, void* tickets, void* stream) {
+    using Launch = int (*)(const float*, const float*, float*, int*, float*, int, int, int, bool,
+                           int, int, const Consts&, cudaStream_t);
+    constexpr Launch kLaunch[] = {launch<kGramOnly>, launch<kD2Only>, launch<kOneSqrt>,
+                                  launch<kNoSqrtTail>, launch<kFull>};
+    if (mode < kGramOnly || mode > kFull) return static_cast<int>(cudaErrorInvalidValue);
+    return kLaunch[mode](static_cast<const float*>(P), static_cast<const float*>(Q),
+                         static_cast<float*>(part), static_cast<int*>(tickets),
+                         static_cast<float*>(deg), batch, N, n_tiles, tri != 0, rows_per_thread,
+                         splits, Consts{tau, inv_tau, min_sep, inv_tau2, min_sep2},
+                         static_cast<cudaStream_t>(stream));
 }

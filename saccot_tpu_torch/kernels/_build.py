@@ -55,15 +55,15 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _P],
+    "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _I, _I, _P, _P, _P],
     "saccot_compat_degrees_tri": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _P],
     "saccot_anchor_topb": [_P] * 10 + [_I] * 8 + [_F, _F, _F, _P],
     "saccot_anchor_topb_stream": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P],
     "saccot_candidate_topt": [_P] * 7 + [_I] * 4 + [_F, _F, _F, _P],
     "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
     "saccot_score": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
-    "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _P],
-    "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_P],
+    "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _I, _I, _P, _P, _P],
+    "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_I, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,5 @@
-"""Argument checks shared by the kernel wrappers (CUDA tensors only)."""
+"""Argument checks and launch helpers shared by the kernel wrappers (CUDA
+tensors only)."""
 
 from __future__ import annotations
 
@@ -56,3 +57,23 @@ def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# The tickets of the launches that combine their splits in the last block
+# (csrc/score.cu, the two-sided loop of csrc/degree_loops.cuh), one buffer per
+# (device, stream): each launch leaves every ticket it takes at 0, so the
+# buffer is zeroed once, when it is made or outgrown, and launches on one
+# stream, which run in turn, share it.
+_TICKETS: dict = {}
+
+
+def tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed int32 tickets for a launch on `stream`."""
+    buf = _TICKETS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[(dev, stream)] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf

@@ -11,6 +11,9 @@ Three TPU kernels are replaced, and `degrees` routes between them as
   - `_degree_kernel_mxu_tri` (symmetric: the rows are the columns, row offset
     0, one mask for both, R > `TRI_MIN_ROWS`) by `csrc/compat_degrees_tri.cu`,
     which evaluates each unordered pair once.
+`degree_plan` decides how the two-sided kernel's grid covers (batch, R, C)
+on a card of a given SM count; the ring step (`kernels/ring_compat.py`) and
+the two-sided timing variants (`kernels/compat_ops.py`) take the same plan.
 For CUDA tensors `degrees` launches a kernel; for CPU tensors it runs
 `degrees_reference` (the blocked plain version, `engine/compat.degrees`, the
 plain version of every route). It never falls back from one to the other.
@@ -18,14 +21,17 @@ plain version of every route). It never falls back from one to the other.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from saccot_tpu_torch.engine import compat as compat_mod
 from saccot_tpu_torch.kernels import _build
-from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
+from saccot_tpu_torch.kernels._common import (
+    f32_points, optional_mask, ptr, sm_count, stream_of, tickets,
+)
 from saccot_tpu_torch.utils.params import SacCotParams
 
 
@@ -44,6 +50,88 @@ def degrees_reference(
     `mxu` picks a kernel, so it changes nothing here."""
     return compat_mod.degrees(P_rows, Q_rows, P_cols, Q_cols, params, row_offset=row_offset,
                               mask_rows=mask_rows, mask_cols=mask_cols)
+
+
+# The two-sided loop's block (csrc/degree_loops.cuh kThreads) and its rows a
+# thread (kRowsWide, kRowsNarrow). Each row is summed over SEGMENT columns at
+# a time (kSegment), then segment by segment, so a split is a whole number of
+# segments.
+THREADS = 128
+ROWS_PER_THREAD = (2, 1)
+SEGMENT = 256
+# A grid of FULL_BLOCKS_PER_SM blocks a SM fills the card: at the loop's 52-56
+# registers 9 blocks of 128 threads are resident a SM, so 64 a SM is 7 waves
+# and the last wave idles at most a seventh of the card. Below that the loop
+# splits its columns into single segments. Measured on an H100 at the ring
+# step, the SP slice, the bench point and one pair at N=50,000
+# (`scripts/exp_degree_plan.py`): each shape was fastest at one segment a
+# block or within 3% of it, with 2 rows a thread where that still gives
+# FULL_BLOCKS_PER_SM blocks a SM and 1 row where it does not.
+FULL_BLOCKS_PER_SM = 64
+# A split plan keeps one partial sum a (row, segment) in device memory,
+# 4 * batch * segments * R bytes (78 MB for the two-sided call on the kitti
+# pair); past SCRATCH_BYTES the loop runs unsplit, to the same bits.
+SCRATCH_BYTES = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class DegreePlan:
+    """Grid of the two-sided degree loop: (tiles, splits, batch) blocks of
+    THREADS threads, `rows` rows a thread; split s sums the column segments
+    `split_segments(s)`."""
+    batch: int
+    rows: int
+    tiles: int
+    splits: int
+    segments: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits * self.batch
+
+    def split_segments(self, s: int) -> Tuple[int, int]:
+        """Split s's segments [lo, hi), as the kernel computes them."""
+        return s * self.segments // self.splits, (s + 1) * self.segments // self.splits
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def degree_plan(batch: int, R: int, C: int, sms: int) -> DegreePlan:
+    """The two-sided loop's grid for `batch` x R rows against C columns on a
+    card with `sms` SMs: 2 rows a thread if the grid of 2-row tiles and
+    single segments gives FULL_BLOCKS_PER_SM blocks a SM, else 1; one split
+    if the row tiles alone give that many or the split scratch would pass
+    SCRATCH_BYTES, else one a segment."""
+    segments = _cdiv(C, SEGMENT)
+    full = FULL_BLOCKS_PER_SM * sms
+    wide = ROWS_PER_THREAD[0]
+    rows = wide if _cdiv(R, THREADS * wide) * batch * max(1, segments) >= full else 1
+    tiles = _cdiv(R, THREADS * rows)
+    unsplit = tiles * batch >= full or 4 * batch * segments * R > SCRATCH_BYTES
+    splits = 1 if unsplit else max(1, segments)
+    return DegreePlan(batch=batch, rows=rows, tiles=tiles, splits=splits, segments=segments)
+
+
+def check_plan(plan: DegreePlan, batch: int, R: int, C: int) -> None:
+    """Raise unless `plan` is a grid the kernel can run for `batch` x R rows
+    against C columns (its tickets and scratch are sized from it)."""
+    ok = (plan.rows in ROWS_PER_THREAD and plan.batch == batch
+          and plan.tiles == _cdiv(R, THREADS * plan.rows)
+          and plan.segments == _cdiv(C, SEGMENT) and 1 <= plan.splits <= max(1, plan.segments))
+    if not ok:
+        raise ValueError(f"{plan} is no grid of {batch} x {R} rows against {C} columns")
+
+
+def split_scratch(plan: DegreePlan, R: int, dev: torch.device, stream: int):
+    """(part, tickets) of a launch of `plan`: the [batch, segments, R] segment
+    sums and the zeroed (batch, row tile) tickets of a split plan, else
+    (None, None)."""
+    if plan.splits == 1:
+        return None, None
+    part = torch.empty((plan.batch, plan.segments, R), dtype=torch.float32, device=dev)
+    return part, tickets(dev, stream, plan.batch * plan.tiles)
 
 
 # The symmetric route is taken above this many rows (the reference's TR_MXU).
@@ -107,23 +195,32 @@ def degrees_two_sided(
 
 
 def _two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset, mask_rows, mask_cols,
-               counter: str) -> torch.Tensor:
-    """Launch `csrc/compat_degrees.cu`, counted under `counter`."""
+               counter: str, plan: Optional[DegreePlan] = None) -> torch.Tensor:
+    """Launch `csrc/compat_degrees.cu` on the grid of `plan` (by default
+    `degree_plan`'s; another one gives the same bits), counted under
+    `counter`."""
     batch, R, _ = P_rows.shape
     C = P_cols.shape[1]
     P_rows, Q_rows = f32_points(P_rows, batch, R), f32_points(Q_rows, batch, R)
     P_cols, Q_cols = f32_points(P_cols, batch, C), f32_points(Q_cols, batch, C)
     mask_rows = optional_mask(mask_rows, batch, R, P_rows.device)
     mask_cols = optional_mask(mask_cols, batch, C, P_rows.device)
-    deg = torch.empty((batch, R), dtype=torch.float32, device=P_rows.device)
+    dev = P_rows.device
+    deg = torch.empty((batch, R), dtype=torch.float32, device=dev)
     if batch == 0 or R == 0:
         return deg
+    if plan is None:
+        plan = degree_plan(batch, R, C, sm_count(dev))
+    check_plan(plan, batch, R, C)
+    stream = stream_of(deg)
+    part, ticket_buf = split_scratch(plan, R, dev, stream)
     lib = _build.library()
     rc = lib.saccot_compat_degrees(
         ptr(P_rows), ptr(Q_rows), ptr(P_cols), ptr(Q_cols), ptr(mask_rows),
         ptr(mask_cols), ptr(deg), batch, R, C, int(row_offset),
         float(params.compat_tau), float(np.float32(1.0 / params.compat_tau)),
-        float(params.min_separation), stream_of(deg),
+        float(params.min_separation), plan.rows, plan.splits, ptr(part), ptr(ticket_buf),
+        stream,
     )
     _build.check(rc, counter)
     _build.LAUNCHES[counter] += 1

@@ -19,7 +19,8 @@ unmasked input bit for bit, since a self pair fails min(dp, dq) > min_sep.
 The others are timing aids, never part of `register_batch`.
 
 The two forms are the production kernels' two loops
-(`csrc/degree_loops.cuh`): "two_sided" (`compat_degrees.cu`'s) and "tri"
+(`csrc/degree_loops.cuh`): "two_sided" (`compat_degrees.cu`'s, on the grid
+of `kernels/compat.degree_plan`) and "tri"
 (`compat_degrees_tri.cu`'s: each unordered tile pair once, row and column
 sums). The plain version mirrors the form: row blocks for
 "two_sided"; for "tri", upper-triangle tile pairs whose row sums and column
@@ -35,7 +36,8 @@ import torch
 
 from saccot_tpu_torch.engine.compat import _BLOCK_ELEMS, cross_sq_distances, pair_score
 from saccot_tpu_torch.kernels import _build
-from saccot_tpu_torch.kernels._common import f32_points, ptr, stream_of
+from saccot_tpu_torch.kernels._common import f32_points, ptr, sm_count, stream_of
+from saccot_tpu_torch.kernels.compat import degree_plan, split_scratch
 from saccot_tpu_torch.utils.params import SacCotParams
 
 MODES = ("gram_only", "d2_only", "one_sqrt", "no_sqrt_tail", "full")
@@ -124,15 +126,19 @@ def variant_degrees(P: torch.Tensor, Q: torch.Tensor, params: SacCotParams, mode
     if batch == 0 or N == 0:
         return deg
     n_tiles = -(-N // _TILE)
-    part = None
+    stream = stream_of(deg)
+    plan = degree_plan(batch, N, N, sm_count(P.device))
+    ticket_buf = None
     if form == "tri":
         if n_tiles * (n_tiles + 1) // 2 >= 2 ** 31:
             raise ValueError(f"the tri form takes N <= {_TILE * 65535} (got {N})")
         part = torch.empty((batch, n_tiles, N), dtype=torch.float32, device=P.device)
+    else:
+        part, ticket_buf = split_scratch(plan, N, P.device, stream)
     counter = f"compat_ops_{form}"
     rc = _build.library().saccot_compat_ops(
         ptr(P), ptr(Q), ptr(part), ptr(deg), batch, N, n_tiles, MODES.index(mode),
-        int(form == "tri"), *_consts(params), stream_of(deg),
+        int(form == "tri"), *_consts(params), plan.rows, plan.splits, ptr(ticket_buf), stream,
     )
     _build.check(rc, counter)
     _build.LAUNCHES[counter] += 1

@@ -5,7 +5,10 @@ Replaces `saccot_tpu/kernels/ring_compat.py::_ring_degree_kernel` with
 `csrc/ring_degrees.cu`. The TPU fuses the whole ring into one program with
 in-kernel remote copies; the port launches one compute kernel per ring step
 and moves the column blocks between steps with `torch.distributed`
-(`dist/ring.degrees_ring` holds the schedule).
+(`dist/ring.degrees_ring` holds the schedule). The step is an instance of the
+two-sided degree loop (`csrc/degree_loops.cuh`) on the grid of
+`kernels/compat.degree_plan`, so a step at d = 1 on a zeroed `deg` gives
+`compat.degrees(..., mxu=False)` bit for bit.
 
 Blocks use the TPU's packed, coordinate-major layout `[batch, 8, n_pad]`
 float32: rows 0-2 source xyz, 3-5 target xyz, 6 the validity mask, 7 pad,
@@ -20,7 +23,8 @@ import torch
 
 from saccot_tpu_torch.engine import compat as compat_mod
 from saccot_tpu_torch.kernels import _build
-from saccot_tpu_torch.kernels._common import f32_tensor, ptr, stream_of
+from saccot_tpu_torch.kernels._common import f32_tensor, ptr, sm_count, stream_of
+from saccot_tpu_torch.kernels.compat import degree_plan, split_scratch
 from saccot_tpu_torch.utils.params import SacCotParams
 
 PACKED_ROWS = 8
@@ -98,11 +102,14 @@ def ring_degrees_step(
         raise ValueError("deg must be a contiguous float32 tensor (it is updated in place)")
     if batch == 0 or n_loc == 0:
         return deg
+    plan = degree_plan(batch, n_loc, n_loc, sm_count(deg.device))
+    stream = stream_of(deg)
+    part, ticket_buf = split_scratch(plan, n_loc, deg.device, stream)
     lib = _build.library()
     rc = lib.saccot_ring_degrees(
         ptr(blk_rows), ptr(blk_cols), ptr(deg), batch, n_loc, n_pad, int(row_base),
         int(col_base), float(params.compat_tau), float(np.float32(1.0 / params.compat_tau)),
-        float(params.min_separation), stream_of(deg),
+        float(params.min_separation), plan.rows, plan.splits, ptr(part), ptr(ticket_buf), stream,
     )
     _build.check(rc, "ring_degrees")
     _build.LAUNCHES["ring_degrees"] += 1

@@ -17,7 +17,9 @@ import torch
 from saccot_tpu_torch.engine import score as score_mod
 from saccot_tpu_torch.engine.score import reduce_scores
 from saccot_tpu_torch.kernels import _build
-from saccot_tpu_torch.kernels._common import f32_points, optional_mask, ptr, stream_of
+from saccot_tpu_torch.kernels._common import (
+    f32_points, optional_mask, ptr, sm_count, stream_of, tickets,
+)
 
 
 # The kernel's block: 128 threads, two hypotheses each (csrc/score.cu kThreads,
@@ -75,23 +77,6 @@ def weighted_rtol(N: int) -> float:
     terms, then ceil(N / SEGMENT) segments; torch's reduction fewer than
     1,000 per thread, then its tree."""
     return (SEGMENT + _cdiv(N, SEGMENT) + 1000) * 2.0 ** -24
-
-
-def sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-# The splitting launches' tickets, one buffer per (device, stream): the kernel
-# leaves every ticket it takes at 0, so the buffer is zeroed once, when it is
-# made or outgrown.
-_TICKETS: dict = {}
-
-
-def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    buf = _TICKETS.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[(dev, stream)] = torch.zeros(n, dtype=torch.int32, device=dev)
-    return buf
 
 
 def _check_hyp(x: torch.Tensor, rows: int, batch: int, name: str) -> torch.Tensor:
@@ -153,18 +138,18 @@ def score_hypotheses(
     weighted = mode == "weighted"
     plan = score_plan(batch, K, N, sm_count(dev))
     stream = stream_of(scores)
-    part_c = part_w = tickets = None
+    part_c = part_w = ticket_buf = None
     if plan.splits > 1:
         part_c = torch.empty((batch, plan.splits, K), dtype=torch.int32, device=dev)
         if weighted:
             part_w = torch.empty((batch, _cdiv(N, SEGMENT), K), dtype=torch.float32, device=dev)
         # One ticket per (batch, hypothesis tile); the tile's last block sums
         # the splits.
-        tickets = _tickets(dev, stream, batch * plan.tiles)
+        ticket_buf = tickets(dev, stream, batch * plan.tiles)
     lib = _build.library()
     rc = lib.saccot_score(
         ptr(r9), ptr(t3), ptr(P), ptr(Q), ptr(mask), ptr(scores), ptr(counts), ptr(part_c),
-        ptr(part_w), ptr(tickets), batch, N, K, plan.splits, plan.chunk,
+        ptr(part_w), ptr(ticket_buf), batch, N, K, plan.splits, plan.chunk,
         float(np.float32(tau * tau)), float(np.float32(1.0 / tau)), int(weighted), stream,
     )
     _build.check(rc, "score")

@@ -8,7 +8,9 @@ warm-up batch), and from `torch.profiler` over `--batches` batches the device
 busy ms per batch (the sum of CUDA kernel times; the port runs on one
 stream), the idle share 1 - busy / wall, the kernels launched per batch, the
 five kernels with the most device time, and the device ms per batch of each
-hand-written kernel (`csrc/`). Needs a CUDA device.
+hand-written kernel (`csrc/`). Needs a CUDA device. `kernel_device_ms`
+gives the same device ms of the hand-written kernels for any call
+(`chip_smoke.py` reads it beside the CUDA-event times of the degree kernels).
 """
 
 from __future__ import annotations
@@ -67,6 +69,33 @@ def _device_us(row) -> float:
     return 0.0
 
 
+def _profile(fn, batches: int):
+    """The CUDA kernel rows of `torch.profiler` over `batches` calls of fn."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(batches):
+            fn()
+        torch.cuda.synchronize()
+    return [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA and _device_us(r) > 0]
+
+
+def kernel_device_ms(fn, reps: int = 10) -> float:
+    """Device ms of one launch of each hand-written kernel that `fn`
+    launches once, summed: `torch.profiler` over `reps` calls after one
+    warm-up call, each kernel's device time over the launches the profiler
+    recorded (it may drop some)."""
+    fn()
+    torch.cuda.synchronize()
+    names = own_kernel_names()
+    total_us = 0.0
+    for r in _profile(fn, reps):
+        m = _KERNEL_NAME.search(r.key)
+        if m and m.group(1) in names:
+            total_us += _device_us(r) / r.count
+    return total_us / 1e3
+
+
 def profile_point(name: str, reps: int, batches: int) -> dict:
     dev = torch.device("cuda", 0)
     (P, Q), params = POINTS[name](dev)
@@ -77,13 +106,7 @@ def profile_point(name: str, reps: int, batches: int) -> dict:
         register_batch(P, Q, params)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(batches):
-            register_batch(P, Q, params)
-        torch.cuda.synchronize()
-    kernels = [r for r in prof.key_averages()
-               if r.device_type == torch.autograd.DeviceType.CUDA and _device_us(r) > 0]
+    kernels = _profile(lambda: register_batch(P, Q, params), batches)
     busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / batches
     top = sorted(kernels, key=_device_us, reverse=True)[:5]
     names, own = own_kernel_names(), {}

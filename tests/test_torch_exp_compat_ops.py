@@ -12,6 +12,7 @@ plain checks need a card and skip here.
 """
 
 import ast
+import collections
 import functools
 from pathlib import Path
 
@@ -253,8 +254,9 @@ def test_variant_kernel_matches_plain_on_card(mode, form):
 
 
 def test_sass_listing_is_parsed_per_variant():
-    """The SASS report keys each variant kernel by form and mode, counts its
-    opcodes (NOPs aside) and the body of its longest backward branch."""
+    """The SASS report keys each variant kernel by form and mode (and a
+    two-sided instance by its rows a thread), counts its opcodes (NOPs
+    aside) and the body of its longest backward branch."""
     head = "\t\tFunction : _ZN46_GLOBAL__N__0e118eed_13_compat_ops_cu_c83ea518"
     listing = "\n".join([
         head + "18tri_degrees_kernelILb0ENS_7VariantILi2EEEEEvPKfS4_S4_PfiiT0_",
@@ -268,15 +270,40 @@ def test_sass_listing_is_parsed_per_variant():
         "\t\tFunction : _ZN54_GLOBAL__N__16b109ba_21_compat_degrees_tri_cu_1331fec5"
         "18tri_degrees_kernelILb1EN6saccot11CompatScoreEEEvPKfS4_S4_PfiiT0_",
         "        /*0000*/                   FADD R1, R2, R3 ;",
-        head + "24two_sided_degrees_kernelILb0ENS_7VariantILi4EEEEEvPKfS4_S4_S4_S4_S4_Pfiix"
-        "T0_",
+        head + "24two_sided_degrees_kernelILi4ELb0ENS_10PointsViewES1_NS_7VariantILi4EEENS_9"
+        "StoreSumsEEEvT1_T2_iixxPfPiT3_T4_",
         "        /*0000*/                   EXIT ;",
+        head + "24two_sided_degrees_kernelILi2ELb0ENS_10PointsViewES1_NS_7VariantILi1EEENS_9"
+        "StoreSumsEEEvT1_T2_iixxPfPiT3_T4_",
+        "        /*0000*/                   FADD R1, R2, R3 ;",
+        "\t\tFunction : _ZN54_GLOBAL__N__16b109ba_21_compat_degrees_cu_1331fec5"
+        "24two_sided_degrees_kernelILi4ELb1ENS_10PointsViewES1_N6saccot11CompatScoreENS_9"
+        "StoreSumsEEEvT1_T2_iixxPfPiT3_T4_",
+        "        /*0000*/                   FADD R1, R2, R3 ;",
     ])
     got = exp_compat_ops.parse_sass(listing)
-    assert sorted(got) == ["tri/one_sqrt", "two_sided/full"]
+    assert sorted(got) == ["tri/one_sqrt", "two_sided/d2_only/rows2", "two_sided/full/rows4"]
     tri = got["tri/one_sqrt"]
     assert tri["ops"] == {"LDC": 1, "MUFU.RSQ": 1, "BRA": 2, "FADD": 1, "EXIT": 1}
-    assert tri["loop"] == 4 and got["two_sided/full"]["loop"] == 0
+    assert tri["loop"] == 4 and got["two_sided/full/rows4"]["loop"] == 0
+    assert got["two_sided/d2_only/rows2"]["ops"] == {"FADD": 1}
+
+
+def test_sass_report_gives_each_instance_its_root_cost(capsys):
+    """print_sass pairs each instance's one_sqrt with its own d2_only: a
+    two-sided instance of 2 rows a thread with the d2_only of 2 rows."""
+    def kernel(n, rsq):
+        ops = collections.Counter({"FADD": n - rsq, "MUFU.RSQ": rsq})
+        return dict(ops=ops, loop=8)
+    exp_compat_ops.print_sass({
+        "two_sided/one_sqrt/rows2": kernel(130, 4), "two_sided/d2_only/rows2": kernel(90, 0),
+        "two_sided/one_sqrt/rows1": kernel(70, 2), "two_sided/d2_only/rows1": kernel(50, 0),
+        "tri/one_sqrt": kernel(96, 32), "tri/d2_only": kernel(64, 0)})
+    out = capsys.readouterr().out
+    assert "two_sided/rows2: one_sqrt - d2_only = 10.00 instructions per root" in out
+    assert "two_sided/rows1: one_sqrt - d2_only = 10.00 instructions per root" in out
+    assert "tri: one_sqrt - d2_only = 1.00 instructions per root" in out
+    assert "hot loop 8 = 0.2 per pair" in out
 
 
 def test_modes_are_the_scripts():

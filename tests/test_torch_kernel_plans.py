@@ -1,12 +1,16 @@
-"""Launch plans of the score kernel and the fused anchor kernel.
+"""Launch plans of the score kernel, the fused anchor kernel and the
+two-sided degree loop.
 
 `score_plan` splits the point axis across blocks where the hypothesis tiles
 alone would not fill the card; `anchor_plan` chooses how many anchors (one
-warp each) a block of the fused anchor kernel holds. Both are pure Python and
-are checked here. The kernels themselves are held to their plain versions on
-the card (skipped here: a CUDA kernel has no CPU mode).
+warp each) a block of the fused anchor kernel holds; `degree_plan` chooses
+the rows a thread of the two-sided degree loop (`compat_degrees.cu`,
+`ring_degrees.cu`, `compat_ops.cu`) and splits its column segments. All are
+pure Python and are checked here. The kernels themselves are held to their
+plain versions on the card (skipped here: a CUDA kernel has no CPU mode).
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -14,8 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from saccot_tpu_torch.kernels import compat as kcompat
+from saccot_tpu_torch.kernels import ring_compat as kring
 from saccot_tpu_torch.kernels import score as kscore
 from saccot_tpu_torch.kernels import triangles as ktri
+from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch
+from saccot_tpu_torch.utils.params import SacCotParams
 
 torch.set_num_threads(2)
 
@@ -251,3 +259,240 @@ def check_anchor_kernel(B, N, device):
 @pytest.mark.parametrize("n", ["B", 33, 1000, 2048, 4096])
 def test_anchor_kernel_shapes_on_card(B, n):
     check_anchor_kernel(B, B if n == "B" else n, torch.device("cuda"))
+
+
+# -- degree_plan ------------------------------------------------------------------
+
+# (batch, R, C): one ring step at kitti with two ranks, the 3DMatch point's SP
+# slice, the bench point, the attribution pair, ragged and tiny shapes.
+RING = (2, 25000, 25000)
+SP_SLICE = (32, 1024, 2048)
+DEG_BENCH = (128, 1000, 1000)
+ATTRIBUTION = (1, 50000, 50000)
+DEGREE_SHAPES = [RING, SP_SLICE, DEG_BENCH, ATTRIBUTION, (2, 1000, 3000), (1, 3000, 3000),
+                 (128, 500, 500), (2, 50000, 50000), (3, 257, 511), (1, 1, 1), (2, 5, 0)]
+
+
+@pytest.mark.parametrize("shape", DEGREE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_degree_splits_cover_every_column_once(shape, sms):
+    batch, R, C = shape
+    plan = kcompat.degree_plan(batch, R, C, sms)
+    assert plan.rows in kcompat.ROWS_PER_THREAD
+    rows_a_tile = kcompat.THREADS * plan.rows
+    assert plan.tiles * rows_a_tile >= R > (plan.tiles - 1) * rows_a_tile
+    assert plan.segments == -(-C // kcompat.SEGMENT)
+    assert 1 <= plan.splits <= max(1, plan.segments)
+    covered = np.zeros(C, np.int64)
+    for s in range(plan.splits):
+        lo, hi = plan.split_segments(s)
+        assert lo < hi or C == 0, f"split {s} is empty"
+        covered[lo * kcompat.SEGMENT:hi * kcompat.SEGMENT] += 1   # whole segments
+    assert (covered == 1).all()
+    assert plan.blocks == plan.tiles * plan.splits * batch
+
+
+@pytest.mark.parametrize("shape", [RING, SP_SLICE, DEG_BENCH, ATTRIBUTION],
+                         ids=["ring", "sp_slice", "bench", "attribution"])
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 200])
+def test_degree_plan_reaches_block_target(shape, sms):
+    """FULL_BLOCKS_PER_SM blocks a SM, or the most blocks the shape allows:
+    one row a thread and one column segment a block."""
+    batch, R, C = shape
+    plan = kcompat.degree_plan(batch, R, C, sms)
+    full = kcompat.FULL_BLOCKS_PER_SM * sms
+    assert plan.blocks >= full or (plan.rows == 1 and plan.splits == plan.segments)
+    if plan.splits > 1:
+        assert plan.tiles * batch < full and plan.splits == plan.segments
+    if plan.rows == 1:
+        # Two rows a thread would have given too few blocks.
+        assert -(-R // (2 * kcompat.THREADS)) * batch * plan.segments < full
+
+
+def test_degree_plan_at_the_ports_shapes():
+    """2 rows a thread where the grid stays full, 1 where it does not; one
+    column segment a block at every shape the port runs."""
+    got = {name: kcompat.degree_plan(*shape, H100_SMS) for name, shape in
+           (("ring", RING), ("sp", SP_SLICE), ("bench", DEG_BENCH), ("attr", ATTRIBUTION))}
+    assert {k: (p.rows, p.splits) for k, p in got.items()} == {
+        "ring": (2, 98), "sp": (1, 8), "bench": (1, 4), "attr": (2, 196)}
+    assert got["ring"].blocks == 2 * 98 * 98
+
+
+@pytest.mark.parametrize("shape", [(2200, 1000, 1000), (64, 50000, 50000), (9000, 200, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_degree_plan_keeps_one_split_when_the_row_tiles_fill_the_card(shape):
+    batch, R, C = shape
+    plan = kcompat.degree_plan(batch, R, C, H100_SMS)
+    assert plan.tiles * batch >= kcompat.FULL_BLOCKS_PER_SM * H100_SMS
+    assert plan.splits == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 1_000_000, 1_000_000), (4, 300_000, 300_000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_degree_plan_bounds_the_split_scratch(shape):
+    """Past SCRATCH_BYTES of segment sums the loop runs unsplit (the same
+    bits, no scratch); the port's shapes stay far below it."""
+    batch, R, C = shape
+    plan = kcompat.degree_plan(batch, R, C, H100_SMS)
+    assert 4 * batch * plan.segments * R > kcompat.SCRATCH_BYTES and plan.splits == 1
+    for shape in (RING, SP_SLICE, DEG_BENCH, ATTRIBUTION, (2, 50000, 50000)):
+        plan = kcompat.degree_plan(*shape, H100_SMS)
+        assert plan.splits > 1
+        assert 4 * plan.batch * plan.segments * shape[1] <= kcompat.SCRATCH_BYTES // 8
+
+
+def test_degree_plan_ragged_rows_and_columns():
+    plan = kcompat.degree_plan(2, 1000, 3000, H100_SMS)
+    assert (plan.rows, plan.tiles, plan.segments, plan.splits) == (1, 8, 12, 12)
+    assert plan.tiles * kcompat.THREADS * plan.rows >= 1000
+    bounds = [plan.split_segments(s) for s in range(plan.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == 12
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # Fewer splits than segments (an explicit plan) differ in size by at most
+    # one segment.
+    odd = kcompat.DegreePlan(batch=2, rows=2, tiles=4, splits=5, segments=12)
+    sizes = [hi - lo for lo, hi in (odd.split_segments(s) for s in range(5))]
+    assert sum(sizes) == 12 and max(sizes) - min(sizes) <= 1
+
+
+def test_degree_plan_check_refuses_what_the_kernel_cannot_run():
+    plan = kcompat.degree_plan(2, 1000, 3000, H100_SMS)
+    kcompat.check_plan(plan, 2, 1000, 3000)
+    for bad in (dict(rows=4, tiles=2), dict(tiles=7), dict(batch=3), dict(splits=13),
+                dict(splits=0), dict(segments=11, splits=11)):
+        with pytest.raises(ValueError):
+            kcompat.check_plan(dataclasses.replace(plan, **bad), 2, 1000, 3000)
+
+
+def test_degree_plan_matches_the_kernel_source():
+    assert _csrc_int("kThreads", "degree_loops.cuh") == kcompat.THREADS
+    assert _csrc_int("kSegment", "degree_loops.cuh") == kcompat.SEGMENT
+    assert (_csrc_int("kRowsWide", "degree_loops.cuh"),
+            _csrc_int("kRowsNarrow", "degree_loops.cuh")) == kcompat.ROWS_PER_THREAD
+
+
+def test_plan_sweep_covers_every_grid_it_names():
+    """`scripts/exp_degree_plan.py` sweeps both rows a thread and splits from
+    1 to one a segment at every shape, each a grid the kernel can run."""
+    from saccot_tpu_torch.scripts import exp_degree_plan as xplan
+
+    for _, batch, R, C in xplan.SHAPES:
+        plans = list(xplan.plans(batch, R, C))
+        segments = -(-C // kcompat.SEGMENT)
+        for plan in plans:
+            kcompat.check_plan(plan, batch, R, C)
+        assert {p.rows for p in plans} == set(kcompat.ROWS_PER_THREAD)
+        assert {p.splits for p in plans} >= {1, segments}
+        assert kcompat.degree_plan(batch, R, C, H100_SMS) in plans
+
+
+def test_ring_step_has_no_loop_of_its_own():
+    """The ring step, the direct route and the two-sided variants are
+    instances of the one two-sided loop of degree_loops.cuh."""
+    for src in ("ring_degrees.cu", "compat_degrees.cu", "compat_ops.cu"):
+        text = (CSRC / src).read_text()
+        assert '#include "degree_loops.cuh"' in text and "launch_two_sided<" in text
+        assert "__global__" not in text and "for (" not in text, src
+
+
+DEG_PARAMS = SacCotParams(compat_tau=0.05, min_separation=0.1, inlier_tau=0.05)
+
+
+def degree_case(batch, n, device, seed=0):
+    """Kitti-like points (70% outliers) and a mask that drops about a fifth."""
+    P, Q, _ = kitti_problem_batch(range(KITTI_SEED + seed, KITTI_SEED + seed + batch),
+                                  device=device, n=n)
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy((rng.uniform(size=(batch, n)) > 0.2).astype(np.float32)).to(device)
+    return P, Q, mask
+
+
+def check_degree_kernel(batch, R, C, offset, masked, device):
+    """degrees(mxu=False) of rows offset:offset + R against all C columns,
+    within rtol 1e-5 / atol 2e-3 of the plain version, the same bits in two
+    calls."""
+    P, Q, mask = degree_case(batch, C, device)
+    rows = slice(offset, offset + R)
+    args = (P[:, rows].contiguous(), Q[:, rows].contiguous(), P, Q, KITTI_PARAMS)
+    kw = dict(row_offset=offset)
+    if masked:
+        kw.update(mask_rows=mask[:, rows].contiguous(), mask_cols=mask)
+    got = kcompat.degrees(*args, **kw, mxu=False)
+    ref = kcompat.degrees_reference(*args, **kw)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-3)
+    assert torch.equal(got, kcompat.degrees(*args, **kw, mxu=False))
+    return got
+
+
+def explicit_plans(batch, R, C):
+    """degree_plan's and other plans of both rows a thread: one split, a few
+    splits of unequal size, one segment a block."""
+    segments = -(-C // kcompat.SEGMENT)
+    out = []
+    for rows in kcompat.ROWS_PER_THREAD:
+        tiles = -(-R // (kcompat.THREADS * rows))
+        for splits in sorted({1, min(segments, 5), max(1, segments)}):
+            out.append(kcompat.DegreePlan(batch=batch, rows=rows, tiles=tiles, splits=splits,
+                                          segments=segments))
+    return out
+
+
+# (batch, R, C, row offset): ragged R and C, offsets that cut a tile's
+# diagonal, a slice of an SP rank's rows, many small pairs.
+DEGREE_CARD_SHAPES = {"ragged": (2, 1000, 3000, 1000), "ragged_tail": (2, 777, 5000, 4000),
+                      "square": (1, 3000, 3000, 0), "sp_slice": (8, 1024, 2048, 1024),
+                      "many_pairs": (200, 500, 700, 100)}
+
+
+@needs_cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", DEGREE_CARD_SHAPES)
+def test_degree_kernel_matches_plain_over_plans_on_card(name, masked):
+    """The kernel within rtol 1e-5 / atol 2e-3 of its plain version under
+    degree_plan's plan and the same bits under every other plan."""
+    batch, R, C, offset = DEGREE_CARD_SHAPES[name]
+    got = check_degree_kernel(batch, R, C, offset, masked, torch.device("cuda"))
+    P, Q, mask = degree_case(batch, C, torch.device("cuda"))
+    rows = slice(offset, offset + R)
+    mr, mc = (mask[:, rows].contiguous(), mask) if masked else (None, None)
+    for plan in explicit_plans(batch, R, C):
+        again = kcompat._two_sided(P[:, rows].contiguous(), Q[:, rows].contiguous(), P, Q,
+                                   KITTI_PARAMS, offset, mr, mc, "compat_degrees_direct",
+                                   plan=plan)
+        assert torch.equal(again, got), plan
+
+
+@needs_cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_degree_bits_independent_of_row_and_batch_slice_on_card(masked):
+    """Each row is summed in 256-column segments, then segment by segment, so
+    the second half of the rows (an SP rank's slice) and batch slices give
+    the full call's bits, on grids of other tiles and rows a thread."""
+    dev = torch.device("cuda")
+    n = 6000
+    P, Q, mask = degree_case(8, n, dev)
+    m = dict(mask_rows=mask, mask_cols=mask) if masked else {}
+    full = kcompat.degrees(P, Q, P, Q, KITTI_PARAMS, **m, mxu=False)
+    h = n // 2
+    ms = dict(mask_rows=mask[:, h:].contiguous(), mask_cols=mask) if masked else {}
+    got = kcompat.degrees(P[:, h:].contiguous(), Q[:, h:].contiguous(), P, Q, KITTI_PARAMS,
+                          row_offset=h, **ms, mxu=False)
+    assert torch.equal(got, full[:, h:])
+    for lo, hi in ((2, 5), (6, 7)):
+        mb = dict(mask_rows=mask[lo:hi], mask_cols=mask[lo:hi]) if masked else {}
+        got = kcompat.degrees(P[lo:hi], Q[lo:hi], P[lo:hi], Q[lo:hi], KITTI_PARAMS, **mb,
+                              mxu=False)
+        assert torch.equal(got, full[lo:hi])
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [1000, 2048, 5000])
+def test_ring_step_at_d1_equals_the_direct_route_on_card(n):
+    """One ring step over the rank's own block on a zeroed deg adds the row
+    sums of the same loop to 0: the direct route's degrees bit for bit."""
+    P, Q, _ = degree_case(2, n, torch.device("cuda"), seed=1)
+    blk = kring.pack_block(P, Q)
+    step = kring.ring_degrees_step(blk, blk, torch.zeros((2, n), device="cuda"), 0, 0,
+                                   DEG_PARAMS)
+    assert torch.equal(step, kcompat.degrees(P, Q, P, Q, DEG_PARAMS, mxu=False))
