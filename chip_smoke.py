@@ -11,9 +11,9 @@ Phases (any failure exits non-zero before the result lines are printed):
   3. each kernel against its plain PyTorch version on the card, at the bench
      shapes (batch 128, N=1000, A=256, B=12, K=1024), with the stated
      tolerances, and the median time of each over CUDA-event-timed reps
-     (the degree kernels also their device time from the profiler); the
-     fused anchor kernel's selections bit for bit against the streamed
-     kernel's (column tiles of 256) and its top-T mode against
+     and each kernel's device time from the profiler; the fused anchor
+     kernel's selections bit for bit against the streamed kernel's (column
+     chunks of 256) and its top-T mode against
      `candidate_topt` on its own selections (`hold_anchor`); score's counts
      identical to the plain version's, its weighted mode within the stated
      tolerance, bit-identical across two calls and for half the hypotheses
@@ -33,8 +33,11 @@ Phases (any failure exits non-zero before the result lines are printed):
   6. the large-N kernels against their plain versions at the kitti shapes
      (batch 2, N=50,000, A=512, B=16, T=4, K=2048): the symmetric degree
      kernel (also bit-identical across two calls, and against the two-sided
-     kernel), the streamed top-B (also bit-identical to the fused kernel at
-     N=3,000 over three column tiles), the candidate top-T (also against the
+     kernel), the streamed top-B (also bit-identical across two calls and
+     for each half of the anchors run alone, and to the fused kernel at
+     N=3,000 under three plans, with and without masks: one chunk, chunks of
+     1,024, and chunks of 7 columns, fewer than B), the candidate top-T (also
+     against the
      fused kernel's top-T mode), and the solve and score kernels at N=50,000,
      score held as in phase 3 there and at the SP shard's 25,000 points;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
@@ -140,14 +143,14 @@ def degree_plan_str(batch, R, C):
 
 def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
     """The fused anchor kernel in both modes against its plain version, its
-    selections bit for bit against the streamed kernel's (unchanged, column
-    tiles of 256) and its top-T against `candidate_topt` on its own
-    selections. Returns the worst error of each mode."""
+    selections bit for bit against the streamed kernel's over many column
+    chunks (256 columns each) and its top-T against `candidate_topt` on its
+    own selections. Returns the worst error of each mode."""
     import torch
 
     from saccot_tpu_torch.kernels import triangles as ktri
 
-    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, tile_n=256)
+    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, chunk_n=256)
     errs = {}
     for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
         got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
@@ -172,8 +175,8 @@ def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
                                      tau, sep)
             check(all(torch.equal(x, y) for x, y in zip(ct, got[2:])),
                   f"anchor_topb topt at {where} differs from candidate_topt on its selections")
-        # The warp-scope selection against the block-scope one: bit for bit,
-        # since the key is a total order.
+        # The whole row against 256-column chunks merged: bit for bit, since
+        # the key is a total order.
         check(torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1]),
               f"anchor_topb {mode} at {where}: selections differ from anchor_neighbors_stream")
         errs[mode] = max(err_s, err_c)
@@ -181,7 +184,7 @@ def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
     plan = ktri.anchor_plan(N, B)
     print(f"  anchor_topb at {where} (batch {P.shape[0]}, N={N}, A={A}, B={B}): {plan_str(plan)}, "
           f"{-(-A // plan.warps)} blocks a pair; scores within 1e-6 of plain; selections "
-          "bit-identical to anchor_neighbors_stream(tile_n=256), top-T to candidate_topt",
+          "bit-identical to anchor_neighbors_stream(chunk_n=256), top-T to candidate_topt",
           flush=True)
     return errs
 
@@ -365,13 +368,15 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
-    # The loops of the two kernels redesigned for Hopper, as compiled, longest
+    # The loops of the kernels redesigned for Hopper, as compiled, longest
     # first: score's point-tile loop, then its inner loop over 4 points x 2
-    # hypotheses; the anchor kernel's row loop over 2 columns with and
-    # without a column mask, then its selection rounds.
-    for name in ("score_kernel", "anchor_topb_kernel"):
+    # hypotheses; the fused anchor kernel's row loop over 2 columns with and
+    # without a column mask, then its selection rounds; the streamed kernel's
+    # chunk loop without and with a column mask (template argument
+    # ILb<masked>E), then its rescans and rounds.
+    for name in ("score_kernel", "anchor_topb_kernel", "anchor_topb_stream_kernel"):
         for fn, loops in sass_loops(name).items():
-            print(f"  sass {fn[fn.index(name):][:40]}: loop bodies {loops[:4]} instructions")
+            print(f"  sass {fn[fn.index(name):][:48]}: loop bodies {loops[:5]} instructions")
     # The one two-sided degree loop in its production instances (the direct
     # routes and the ring step, each at 2 and 1 rows a thread): a column
     # segment (staging, both sweeps, the segment sum), then the sweep with
@@ -442,7 +447,10 @@ def main():
             "saccot_tpu/kernels/triangles.py:42", anchor_err[mode],
             time_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)),
             time_ms(lambda: ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)),
-            f"anchor_topb_{mode}", anchor_cost[mode])
+            f"anchor_topb_{mode}", anchor_cost[mode],
+            device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep,
+                                                                     **kw)),
+            plan=plan_str(ktri.anchor_plan(1000, B)))
 
     pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, exact, impl="plain")
     triples = pool.triples
@@ -455,14 +463,17 @@ def main():
     row("solve3", "saccot_tpu_torch/csrc/solve3.cu", "saccot_tpu/kernels/solve3.py:73", err,
         time_ms(lambda: ksolve.solve3(P, Q, triples)),
         time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
-        solve_cost(128, 1000, triples.shape[1]))
+        solve_cost(128, 1000, triples.shape[1]),
+        device_ms=kernel_device_ms(lambda: ksolve.solve3(P, Q, triples)))
 
     hold_score(r9_ref, t3_ref, P, Q, fast.inlier_tau, "the bench point")
     row("score", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q,
                                                           fast.inlier_tau)), "score",
-        score_cost(128, 1000, r9_ref.shape[2]))
+        score_cost(128, 1000, r9_ref.shape[2]),
+        device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q,
+                                                                   fast.inlier_tau)))
     print("phase 3 ok", flush=True)
 
     # -- phase 4: the main path at the bench point ---------------------------
@@ -539,14 +550,17 @@ def main():
         time_ms(lambda: kcompat.degrees(PK, QK, PK, QK, kp), reps=10),
         time_ms(lambda: kcompat.degrees_reference(PK, QK, PK, QK, kp), **big),
         "compat_degrees_tri",
-        ((PAIR_OPS + 1) * 2 * 50000 * 49999 // 2, 4 * 2 * 50000 * 7))
+        ((PAIR_OPS + 1) * 2 * 50000 * 49999 // 2, 4 * 2 * 50000 * 7),
+        device_ms=kernel_device_ms(lambda: kcompat.degrees(PK, QK, PK, QK, kp), reps=5))
     print(f"  compat_degrees two-sided kernel at the same shape: {two_sided_ms:.4f} ms, "
           f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g} "
           f"({degree_plan_str(2, 50000, 50000)})", flush=True)
 
-    # Streamed top-B: scores within 1e-6 of the plain version (the same
-    # predicate, the same operations) and indices equal off ties; ties at the
-    # last slot are judged against a top-(B+1).
+    # Streamed top-B (row 6): scores within 1e-6 of the plain version (the
+    # same predicate, the same operations) and indices equal off ties; ties
+    # at the last slot are judged against a top-(B+1). Bit for bit across two
+    # calls and for each half of the anchors run alone (another grid of
+    # anchor tiles): the key is a total order.
     _, anchors = ktri.topk_stable(deg_ref, A)
     sargs = (PK, QK, anchors, B, tau, sep)
     got = ktri.anchor_neighbors_stream(*sargs)
@@ -556,21 +570,45 @@ def main():
     wider = ktri.anchor_neighbors_reference(PK, QK, anchors, B + 1, tau, sep)[0]
     clear = off_ties(wider, 1e-6)[..., :B]
     check(torch.equal(got[1][clear], ref[1][clear]), "anchor_topb_stream: indices differ")
-    # At N=3,000 with 1,024-column tiles (three tiles) the streamed kernel is
-    # the fused one bit for bit.
+    again = ktri.anchor_neighbors_stream(*sargs)
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "anchor_topb_stream: two calls differ")
+    for lo, hi in ((0, A // 2), (A // 2, A)):
+        part = ktri.anchor_neighbors_stream(PK, QK, anchors[:, lo:hi].contiguous(), B, tau, sep)
+        check(torch.equal(part[0], got[0][:, lo:hi]) and torch.equal(part[1], got[1][:, lo:hi]),
+              f"anchor_topb_stream: anchors {lo}..{hi} run alone differ from the full call")
+    # At N=3,000 the streamed kernel is the fused one bit for bit under three
+    # plans, with and without masks: one chunk of 3,000 columns a warp, three
+    # chunks of 1,024 (the last one ragged) and 429 chunks of 7 columns
+    # (fewer than B: each chunk's list ends in empty slots; the last chunk
+    # holds 4).
     P3k, Q3k, _ = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1], device=dev, n=3000)
     deg3 = kcompat.degrees(P3k, Q3k, P3k, Q3k, kp)
     _, anc3 = ktri.topk_stable(deg3, A)
     a3 = (P3k, Q3k, anc3, B, tau, sep)
-    st3 = ktri.anchor_neighbors_stream(*a3, tile_n=1024)
     fu3 = ktri.anchor_neighbors(*a3, top_t=T)
-    check(torch.equal(st3[0], fu3[0]) and torch.equal(st3[1], fu3[1]),
-          "anchor_topb_stream differs from the fused kernel at N=3000")
+    m3 = (torch.arange(3000, device=dev) % 7 != 3).float().expand(2, 3000).contiguous()
+    mkw = dict(mask=m3, anchor_mask=torch.gather(m3, 1, anc3))
+    fu3m = ktri.anchor_neighbors(*a3, **mkw)
+    sms, plans3 = kcompat.sm_count(dev), []
+    for chunk_n in (3000, 1024, 7):
+        plans3.append(plan_str(ktri.stream_plan(2, A, 3000, B, sms, chunk_n=chunk_n)))
+        for want, kw in ((fu3, {}), (fu3m, mkw)):
+            st3 = ktri.anchor_neighbors_stream(*a3, **kw, chunk_n=chunk_n)
+            check(torch.equal(st3[0], want[0]) and torch.equal(st3[1], want[1]),
+                  f"anchor_topb_stream (chunk_n={chunk_n}, mask={bool(kw)}) differs from the "
+                  "fused kernel at N=3000")
+    splan = ktri.stream_plan(2, A, 50000, B, sms)
+    print(f"  anchor_topb_stream at kitti: {plan_str(splan)}, {splan.blocks} blocks; within "
+          f"{err_s:.3g} of plain, bit-identical across two calls and anchor halves; at N=3000 "
+          f"bit-identical to the fused kernel under {plans3}", flush=True)
     row("anchor_topb_stream", "saccot_tpu_torch/csrc/anchor_topb_stream.cu",
         "saccot_tpu/kernels/triangles.py:201", err_s,
         time_ms(lambda: ktri.anchor_neighbors_stream(*sargs), reps=10),
         time_ms(lambda: ktri.anchor_neighbors_reference(*sargs), **big), "anchor_topb_stream",
-        ((PAIR_OPS + 1) * 2 * A * 50000, 4 * 2 * 50000 * 6 + 8 * 2 * A + 12 * 2 * A * B))
+        ((PAIR_OPS + 1) * 2 * A * 50000, 4 * 2 * 50000 * 6 + 8 * 2 * A + 12 * 2 * A * B),
+        device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors_stream(*sargs)),
+        plan=f"{plan_str(splan)}, {splan.blocks} blocks")
 
     # Candidate top-T: scores within 1e-5 of the plain version (sums of three
     # scores), node ids equal off ties; bit-identical to the fused kernel's
@@ -592,7 +630,8 @@ def main():
         "saccot_tpu/kernels/triangles.py:378", err_c,
         time_ms(lambda: ktri.candidate_topt(*cargs)),
         time_ms(lambda: ktri.candidate_topt_reference(*cargs)), "candidate_topt",
-        ((PAIR_OPS + 4) * 2 * A * B * (B - 1) // 2, 2 * A * B * 36 + 20 * 2 * A * T))
+        ((PAIR_OPS + 4) * 2 * A * B * (B - 1) // 2, 2 * A * B * 36 + 20 * 2 * A * T),
+        device_ms=kernel_device_ms(lambda: ktri.candidate_topt(*cargs)))
 
     # Solve and score at N=50,000 (the TPU streamed the solve above its VMEM
     # cap; the direct-index kernels take any N), tolerances as in phase 3.
@@ -606,7 +645,8 @@ def main():
         "saccot_tpu/kernels/solve3.py:124", err,
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
         time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3",
-        solve_cost(2, 50000, ktrip.shape[1]))
+        solve_cost(2, 50000, ktrip.shape[1]),
+        device_ms=kernel_device_ms(lambda: ksolve.solve3(PK, QK, ktrip)))
     kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
     hold_score(*kargs, "kitti")
     row("score_large_n", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
@@ -614,7 +654,9 @@ def main():
                 reps=10),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK,
                                                           kp.inlier_tau), **big), "score",
-        score_cost(2, 50000, r9_ref.shape[2]))
+        score_cost(2, 50000, r9_ref.shape[2]),
+        device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, PK, QK,
+                                                                   kp.inlier_tau)))
     weighted_ms = time_ms(lambda: kscore.score_hypotheses(*kargs, mode="weighted"), reps=10)
     print(f"  score weighted at kitti: {weighted_ms:.4f} ms", flush=True)
     # The SP shard's points (the first 25,000 of each pair).

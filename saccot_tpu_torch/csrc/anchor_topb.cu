@@ -7,7 +7,7 @@
 //      shared predicate (common.cuh), the self test and the masks, and keeps
 //      it in shared memory (N <= 4096 -> at most 16 KB);
 //   2. runs B argmax rounds over the key (score desc, column asc) with a
-//      -inf knockout, which is lax.top_k's order;
+//      knockout, which is lax.top_k's order;
 //   3. (modes 1 and 2) loads the B selected neighbours' coordinates by direct
 //      index (the TPU kernel used a one-hot matmul to avoid gathers), scores
 //      the B x B pair grid (common.cuh, shared with candidate_topt.cu), and
@@ -30,17 +30,19 @@
 // dynamic shared memory. A region is a WarpScratch (the selections and their
 // coordinates) and max(N, B*B) floats: the score row, later overwritten by
 // the pair grid. Lane l computes columns l, l+32, ... and keeps the best two
-// (score, column) entries of its slice in registers. A round is one
-// warp_argmax (two REDUX warp reductions: the largest score, then the
-// smallest column holding it), after which every lane holds the winner;
-// only the lane that owns the winning column knocks it out and moves up its
-// second entry, and it rescans its slice of the row only when both are
-// spent. The candidate grid and the top-T rounds run at warp scope
-// (common.cuh, WarpScope). There is no block barrier: the warps of a block
-// never wait for each other. As compiled, the row costs 87-95 instructions a
-// column (without and with a column mask; chip_smoke.py prints the loop
-// sizes) against the 41 counted in the bound: the roots' range checks and
-// branches, the loads and their addresses, the selection.
+// (score, column) entries of its slice in registers. The B rounds are the
+// one selection loop of common.cuh (warp_top_b, shared with
+// anchor_topb_stream.cu): a round is one warp_argmax (two REDUX warp
+// reductions: the largest score, then the smallest column holding it), after
+// which every lane holds the winner; only the lane that holds it moves up
+// its second entry (knocking the winner out of the row), and it rescans its
+// slice of the row only when both are spent. The candidate grid and the
+// top-T rounds run at warp scope (common.cuh, WarpScope). There is no block
+// barrier: the warps of a block never wait for each other. As compiled, the
+// row costs 87-95 instructions a column (without and with a column mask;
+// chip_smoke.py prints the loop sizes) against the 41 counted in the bound:
+// the roots' range checks and branches, the loads and their addresses, the
+// selection.
 #include "common.cuh"
 
 namespace {
@@ -54,29 +56,6 @@ struct WarpScratch {
     int sel_i[kMaxB];
     float sp[kMaxB * 3];
     float sq[kMaxB * 3];
-};
-
-constexpr int kNone = 0x7fffffff;   // the column of an empty slot
-
-// The best two remaining (score, column) entries of a lane's slice under
-// key_before; an empty slot holds (-inf, kNone), which every column precedes.
-struct Best2 {
-    float v1 = -INFINITY, v2 = -INFINITY;
-    int i1 = kNone, i2 = kNone;
-    __device__ __forceinline__ void offer(float v, int i) {
-        if (saccot::key_before(v, i, v2, i2)) {   // rare once the slice is under way
-            if (saccot::key_before(v, i, v1, i1)) {
-                v2 = v1; i2 = i1; v1 = v; i1 = i;
-            } else {
-                v2 = v; i2 = i;
-            }
-        }
-    }
-    // Drop the best entry: the second one moves up.
-    __device__ __forceinline__ void pop() {
-        v1 = v2; i1 = i2;
-        v2 = -INFINITY; i2 = kNone;
-    }
 };
 
 __host__ __device__ __forceinline__ int region_floats(int N, int B) {
@@ -114,7 +93,7 @@ anchor_topb_kernel(const float* __restrict__ P, const float* __restrict__ Q,
 
     // 1. The anchor's score row, ((s * m_j) * m_a) as the TPU kernel orders
     // it; each lane keeps the best two entries of its own columns.
-    Best2 best;
+    saccot::Best2 best;
     for (int j = lane; j < N; j += 32) {
         const float dp = saccot::dist3(pax, pay, paz, Pb[j * 3], Pb[j * 3 + 1], Pb[j * 3 + 2]);
         const float dq = saccot::dist3(qax, qay, qaz, Qb[j * 3], Qb[j * 3 + 1], Qb[j * 3 + 2]);
@@ -126,24 +105,16 @@ anchor_topb_kernel(const float* __restrict__ P, const float* __restrict__ Q,
         best.offer(s, j);
     }
 
-    // 2. B rounds: the warp's best; lane r keeps selection r. The owner of
-    // the winning column knocks it out and moves up its second entry; only
-    // when both are spent does it rescan its slice of the row.
+    // 2. B rounds of the one selection loop (common.cuh): lane r keeps
+    // selection r; a lane rescans its slice of the row only when both of its
+    // entries are spent.
     float my_s = 0.0f;
     int my_i = 0;
-    for (int r = 0; r < B; ++r) {
-        float v = best.v1;
-        int i = best.i1;
-        saccot::warp_argmax(v, i);
-        if (lane == r) { my_s = v; my_i = i; }
-        if (r + 1 < B && i < N && (i & 31) == lane) {
-            row[i] = -INFINITY;
-            best.pop();
-            if (best.i1 == kNone) {
-                for (int j = lane; j < N; j += 32) best.offer(row[j], j);
-            }
-        }
-    }
+    saccot::warp_top_b(
+        best, B, -INFINITY, [&](int i) { row[i] = saccot::spent(); },
+        [&](float, int, saccot::Best2& bb) {
+            for (int j = lane; j < N; j += 32) bb.offer(row[j], j);
+        }, my_s, my_i);
     if (lane < B) {
         nbr_s[ab * B + lane] = my_s;
         nbr_idx[ab * B + lane] = my_i;

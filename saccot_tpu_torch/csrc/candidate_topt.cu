@@ -9,7 +9,8 @@
 //      score <= 0 is invalid (the TPU kernel's `sv * vm`);
 //   2. scores the B x B pair grid and runs the T argmax rounds with the
 //      device functions of common.cuh that the fused kernel (anchor_topb.cu)
-//      runs, so on the same selections both give the same bits.
+//      runs, here at block scope (BlockScope), there at warp scope, so on
+//      the same selections both give the same bits.
 //
 // Bound: latency. B*B/2 pair scores and T block-argmax rounds (three
 // barriers each) per anchor, 1,024 blocks at the kitti point; device memory
@@ -49,9 +50,10 @@ candidate_topt_kernel(const float* __restrict__ nbr_s, const long long* __restri
         }
     }
     __syncthreads();
-    saccot::candidate_grid(sel_s, sp, sq, B, tau, inv_tau, min_sep, grid_s, nullptr);
-    saccot::grid_top_t(grid_s, sel_i, B, top_t, red_v, red_i, cand + ab * top_t,
-                       cand_j + ab * top_t, cand_k + ab * top_t);
+    const saccot::BlockScope scope{red_v, red_i};
+    saccot::candidate_grid(scope, sel_s, sp, sq, B, tau, inv_tau, min_sep, grid_s, nullptr);
+    saccot::grid_top_t(scope, grid_s, sel_i, B, top_t, cand + ab * top_t, cand_j + ab * top_t,
+                       cand_k + ab * top_t);
 }
 
 }  // namespace

@@ -109,9 +109,74 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
     v = ordered_value(best);
 }
 
+// The column of an empty slot: every entry with a column precedes
+// (-inf, kNone) under key_before.
+constexpr int kNone = 0x7fffffff;
+
+// A knocked-out score: key_before never prefers a NaN, so Best2 never takes
+// it back.
+__device__ __forceinline__ float spent() { return __int_as_float(0x7fffffff); }
+
+// The best two remaining (score, column) entries of a lane's share under
+// key_before; an empty slot holds (-inf, kNone).
+struct Best2 {
+    float v1 = -INFINITY, v2 = -INFINITY;
+    int i1 = kNone, i2 = kNone;
+    __device__ __forceinline__ void offer(float v, int i) {
+        if (key_before(v, i, v2, i2)) {   // rare once the share is under way
+            if (key_before(v, i, v1, i1)) {
+                v2 = v1; i2 = i1; v1 = v; i1 = i;
+            } else {
+                v2 = v; i2 = i;
+            }
+        }
+    }
+    // Drop the best entry: the second one moves up.
+    __device__ __forceinline__ void pop() {
+        v1 = v2; i1 = i2;
+        v2 = -INFINITY; i2 = kNone;
+    }
+};
+
+// The one selection loop of the anchor kernels (anchor_topb.cu, and both
+// phases of anchor_topb_stream.cu): the top B (B <= 32) of the entries the
+// 32 lanes of a warp hold between them, each entry held by one lane, no two
+// with the same column. `best` is the lane's Best2 over its share. Rounds of
+// warp_argmax; lane r (r < B) returns the winner of round r, so the lanes
+// hold lax.top_k's order, and (-inf, kNone) where the warp held fewer than B
+// entries. The rounds end early at the first winner below `floor_v` (-inf:
+// never), leaving the later lanes' (sel_v, sel_i) as they were; returns the
+// rounds kept. Only the lane that holds a round's winner (v, i) gives it up:
+// it calls `knock(i)`, moves up its second entry, and when both are spent
+// calls `rescan(v, i, best)`, which offers `best` the rest of its share. A
+// lane gives up its entries in its own key order, so the rest are the
+// entries (v, i) precedes: a share held in shared memory knocks its entries
+// out (spent()) and offers all of them again; one that is read only (the
+// merge's lists in device memory) knocks nothing and offers those (v, i)
+// precedes. All 32 lanes must call it; no block barrier.
+template <class Knock, class Rescan>
+__device__ __forceinline__ int warp_top_b(Best2 best, int B, float floor_v, const Knock& knock,
+                                          const Rescan& rescan, float& sel_v, int& sel_i) {
+    const int lane = threadIdx.x & 31;
+    for (int r = 0; r < B; ++r) {
+        float v = best.v1;
+        int i = best.i1;
+        warp_argmax(v, i);
+        if (v < floor_v) return r;
+        if (lane == r) { sel_v = v; sel_i = i; }
+        if (r + 1 < B && i != kNone && i == best.i1) {
+            knock(i);
+            best.pop();
+            if (best.i1 == kNone) rescan(v, i, best);
+        }
+    }
+    return B;
+}
+
 // The two scopes the candidate helpers below run at: a whole block (the
-// streamed path's candidate kernel, candidate_topt.cu) or one warp (the fused
-// anchor kernel, anchor_topb.cu, one anchor per warp).
+// streamed path's candidate kernel, candidate_topt.cu, which passes its
+// block_argmax slots) or one warp (the fused anchor kernel, anchor_topb.cu,
+// one anchor per warp).
 struct BlockScope {
     float* red_v;   // one slot per warp, for block_argmax
     int* red_i;
@@ -166,15 +231,6 @@ __device__ __forceinline__ void candidate_grid(const Scope& scope, const float* 
     scope.sync();
 }
 
-// The block form (candidate_topt.cu).
-__device__ __forceinline__ void candidate_grid(const float* sel_s, const float* sp,
-                                               const float* sq, int B, float tau,
-                                               float inv_tau, float min_sep, float* grid_s,
-                                               float* triu) {
-    candidate_grid(BlockScope{nullptr, nullptr}, sel_s, sp, sq, B, tau, inv_tau, min_sep,
-                   grid_s, triu);
-}
-
 // top_t argmax rounds over the candidate grid (score desc, pair id asc, the
 // order of lax.top_k over the flattened grid), each winner knocked out with
 // -inf. Writes max(score, -1) and the node ids sel_i[b1], sel_i[b2] of the
@@ -201,13 +257,6 @@ __device__ __forceinline__ void grid_top_t(const Scope& scope, float* grid_s, co
         }
         scope.sync();
     }
-}
-
-// The block form (candidate_topt.cu); red_v / red_i hold one slot per warp.
-__device__ __forceinline__ void grid_top_t(float* grid_s, const int* sel_i, int B, int top_t,
-                                           float* red_v, int* red_i, float* cand_row,
-                                           long long* j_row, long long* k_row) {
-    grid_top_t(BlockScope{red_v, red_i}, grid_s, sel_i, B, top_t, cand_row, j_row, k_row);
 }
 
 }  // namespace saccot

@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {
     "anchor_topb": 0,             # neighbours only
     "anchor_topb_candidates": 0,  # + all B(B-1)/2 candidate scores
     "anchor_topb_topt": 0,        # + per-anchor top-T candidates
-    "anchor_topb_stream": 0,      # neighbours over column tiles, N > 4096
+    "anchor_topb_stream": 0,      # neighbours over column chunks, N > 4096
     "candidate_topt": 0,          # top-T candidates from gathered neighbours
     "solve3": 0,
     "score": 0,
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _I, _I, _P, _P, _P],
     "saccot_compat_degrees_tri": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _P],
     "saccot_anchor_topb": [_P] * 10 + [_I] * 8 + [_F, _F, _F, _P],
-    "saccot_anchor_topb_stream": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P],
+    "saccot_anchor_topb_stream": [_P] * 11 + [_I] * 6 + [_F, _F, _F, _P],
     "saccot_candidate_topt": [_P] * 7 + [_I] * 4 + [_F, _F, _F, _P],
     "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
     "saccot_score": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
@@ -104,8 +104,11 @@ def build() -> Path:
     `nvcc -c` per source, all at once, then one link."""
     global build_seconds, build_log
     out = BUILD_DIR / f"libsaccot_kernels_{source_hash()}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        # Built by an earlier process: its compiler output is kept beside it.
         build_seconds = 0.0
+        build_log = log.read_text() if log.exists() else ""
         return out
     nvcc = find_nvcc()
     work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
@@ -129,7 +132,7 @@ def build() -> Path:
     build_log += proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
-    (BUILD_DIR / "build.log").write_text(build_log)
+    log.write_text(build_log)
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
     return out

@@ -11,8 +11,9 @@ Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
       `top_t > 0`: each anchor's top-T candidates with decoded neighbour
       node ids (the fast config);
   - `_anchor_topb_stream_kernel` by `csrc/anchor_topb_stream.cu`
-    (`anchor_neighbors_stream`, any N: column tiles merged into a running
-    top-B);
+    (`anchor_neighbors_stream`, any N: the column axis split into chunks of
+    `stream_plan`, one warp per (anchor, chunk), the chunks' top-Bs merged in
+    the same launch);
   - `_candidate_topt_kernel` by `csrc/candidate_topt.cu` (`candidate_topt`:
     the top-T mode's second half, from gathered neighbour coordinates).
 Selection order is `lax.top_k`'s: score descending, lowest index first. The
@@ -31,13 +32,12 @@ import torch
 from saccot_tpu_torch.engine.compat import cross_distances, pair_distances, pair_score
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import (
-    f32_points, f32_tensor, index_tensor, optional_mask, ptr, stream_of,
+    f32_points, f32_tensor, index_tensor, optional_mask, ptr, sm_count, stream_of, tickets,
 )
+from saccot_tpu_torch.kernels.compat import SCRATCH_BYTES
 
 MAX_N_FUSED = 4096   # the anchor row lives in shared memory (16 KB)
 MAX_NEIGHBORS = 32   # the B x B pair grid lives in shared memory
-TILE_N_STREAM = 2048  # column tile of the streaming kernel (8 KB of shared memory)
-_MAX_TILE_N = 12288   # 48 KB of dynamic shared memory without an opt-in
 # The fused kernel (csrc/anchor_topb.cu) runs one warp per anchor, at most
 # MAX_WARPS warps a block. Each warp's shared region is its selections
 # (WarpScratch, WARP_SCRATCH_WORDS words) and max(N, B*B) floats: the score
@@ -69,6 +69,84 @@ def anchor_plan(N: int, B: int) -> AnchorPlan:
     per_warp = 4 * (WARP_SCRATCH_WORDS + max(N, B * B))
     warps = max(1, min(MAX_WARPS, ANCHOR_SMEM_BUDGET // per_warp))
     return AnchorPlan(warps=warps, smem_bytes=warps * per_warp)
+
+
+# The streamed kernel (csrc/anchor_topb_stream.cu) runs one warp per (anchor,
+# column chunk), W warps a block (at most MAX_WARPS); each warp's shared
+# region holds its chunk's scores, chunk_n floats, and a block stays within
+# ANCHOR_SMEM_BUDGET. Measured on an H100 over W in {2, 4, 8} x chunk_n in
+# {256, ..., 4096} (`scripts/exp_stream_plan.py`; PERF.md lists the
+# readings, with those of a first form that staged each chunk's coordinates
+# in shared memory and took blocks past 48 KB by opt-in): 4 warps over
+# chunks of 1,024 columns read through L1 took the least device time at the
+# kitti point, its anchor shard and N=5,000.
+STREAM_WARPS = 4
+STREAM_CHUNK_N = 1024
+MAX_CHUNKS = 65535   # the grid's y extent
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Grid of the streamed anchor kernel: (tiles, chunks, batch) blocks of
+    `warps` warps, one anchor a warp; chunk c covers columns
+    [c chunk_n, min(N, (c + 1) chunk_n))."""
+    batch: int
+    tiles: int
+    warps: int
+    chunk_n: int
+    chunks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.chunks * self.batch
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block, as the kernel sizes it."""
+        return 4 * self.warps * self.chunk_n
+
+    def scratch_bytes(self, A: int, B: int) -> int:
+        """The [batch, A, chunks, B] (score, column) lists a split plan merges."""
+        return 0 if self.chunks == 1 else 8 * self.batch * A * self.chunks * B
+
+
+def make_stream_plan(batch: int, A: int, N: int, warps: int, chunk_n: int) -> StreamPlan:
+    """The grid of `warps` anchors a block over chunks of `chunk_n` columns."""
+    chunk_n = min(chunk_n, N)
+    return StreamPlan(batch=batch, tiles=-(-A // warps), warps=warps, chunk_n=chunk_n,
+                      chunks=-(-N // chunk_n))
+
+
+def stream_plan(batch: int, A: int, N: int, B: int, sms: int,
+                chunk_n: Optional[int] = None) -> StreamPlan:
+    """The streamed kernel's grid for `batch` x A anchors against N columns
+    and B neighbours on a card of `sms` SMs: STREAM_WARPS anchors a block
+    over chunks of STREAM_CHUNK_N columns (or `chunk_n`), with fewer warps
+    where the block would pass ANCHOR_SMEM_BUDGET. Raises where one warp a
+    block does not fit, or the chunks' lists would pass SCRATCH_BYTES.
+
+    The grid does not depend on `sms`: from under one wave (N=5,000, 1,280
+    blocks) to eight (kitti, 12,544) on an H100's 132 SMs, no other plan of
+    the sweep took less device time."""
+    del sms
+    if not 1 <= B <= min(MAX_NEIGHBORS, N):
+        raise ValueError(f"the streamed anchor kernel takes 1 <= B <= {MAX_NEIGHBORS} and "
+                         f"B <= N (got B={B}, N={N})")
+    chunk_n = STREAM_CHUNK_N if chunk_n is None else chunk_n
+    if chunk_n < 1:
+        raise ValueError(f"chunk_n must be positive, got {chunk_n}")
+    fits = [p for p in (make_stream_plan(batch, A, N, w, chunk_n)
+                        for w in range(STREAM_WARPS, 0, -1))
+            if p.smem_bytes <= ANCHOR_SMEM_BUDGET]
+    if not fits:
+        raise ValueError(f"chunk_n={chunk_n} does not fit {ANCHOR_SMEM_BUDGET} bytes of shared "
+                         "memory with one warp a block")
+    plan = fits[0]
+    if plan.chunks > MAX_CHUNKS or plan.scratch_bytes(A, B) > SCRATCH_BYTES:
+        raise ValueError(f"{plan} needs {plan.chunks} chunks and "
+                         f"{plan.scratch_bytes(A, B)} bytes of lists (at most {MAX_CHUNKS}, "
+                         f"{SCRATCH_BYTES}); take larger chunks")
+    return plan
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -212,38 +290,61 @@ def anchor_neighbors_stream(
     min_separation: float,
     mask: Optional[torch.Tensor] = None,
     anchor_mask: Optional[torch.Tensor] = None,
-    tile_n: int = TILE_N_STREAM,
+    chunk_n: Optional[int] = None,
 ):
     """Top-B compatibility neighbours of each anchor at any N: (nbr_s
     [batch, A, B] float32 descending, nbr_idx [batch, A, B] int64).
 
     Same selection as `anchor_neighbors` without candidates, bit for bit,
-    whatever `tile_n` (the width of the column tiles the kernel streams). The
-    plain version is `anchor_neighbors_reference`.
+    whatever the plan (`stream_plan`'s; `chunk_n` sets the width of the
+    column chunks). The plain version is `anchor_neighbors_reference`.
     """
     if not P.is_cuda:
         return anchor_neighbors_reference(P, Q, anchors, num_neighbors, compat_tau,
                                           min_separation, mask=mask, anchor_mask=anchor_mask)
     batch, N, _ = P.shape
+    plan = stream_plan(batch, anchors.shape[1], N, num_neighbors, sm_count(P.device),
+                       chunk_n=chunk_n)
+    return _stream(P, Q, anchors, num_neighbors, compat_tau, min_separation, mask, anchor_mask,
+                   plan)
+
+
+def _stream(P, Q, anchors, B, compat_tau, min_separation, mask, anchor_mask,
+            plan: StreamPlan, floors: bool = True):
+    """Launch `csrc/anchor_topb_stream.cu` on the grid of `plan` (any plan of
+    the shape gives the same bits); `floors=False` (a timing aid of
+    `scripts/exp_stream_plan.py`) keeps every chunk's B rounds."""
+    batch, N, _ = P.shape
     A = anchors.shape[1]
-    B = num_neighbors
     if not 1 <= B <= min(MAX_NEIGHBORS, N):
         raise ValueError(f"anchor_neighbors_stream on CUDA takes 1 <= B <= {MAX_NEIGHBORS} "
                          f"and B <= N (got B={B}, N={N})")
-    if not 1 <= tile_n <= _MAX_TILE_N:
-        raise ValueError(f"tile_n must lie in [1, {_MAX_TILE_N}], got {tile_n}")
+    if (plan != make_stream_plan(batch, A, N, plan.warps, plan.chunk_n)
+            or not 1 <= plan.warps <= MAX_WARPS or plan.chunks > MAX_CHUNKS
+            or plan.smem_bytes > ANCHOR_SMEM_BUDGET):
+        raise ValueError(f"{plan} is no grid of {batch} x {A} anchors against {N} columns")
     P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
     anchors = index_tensor(anchors, (batch, A), "anchors")
     mask = optional_mask(mask, batch, N, P.device)
     anchor_mask = optional_mask(anchor_mask, batch, A, P.device)
-    nbr_s = torch.empty((batch, A, B), dtype=torch.float32, device=P.device)
-    nbr_idx = torch.empty((batch, A, B), dtype=torch.int64, device=P.device)
+    dev = P.device
+    nbr_s = torch.empty((batch, A, B), dtype=torch.float32, device=dev)
+    nbr_idx = torch.empty((batch, A, B), dtype=torch.int64, device=dev)
     if batch and A:
+        stream = stream_of(nbr_s)
+        part_s = part_i = ticket_buf = floors_at = None
+        if plan.chunks > 1:
+            part_s = torch.empty((batch, A, plan.chunks, B), dtype=torch.float32, device=dev)
+            part_i = torch.empty((batch, A, plan.chunks, B), dtype=torch.int32, device=dev)
+            # (batch, anchor tile) tickets, then one zeroed floor per anchor.
+            ticket_buf = tickets(dev, stream, batch * plan.tiles + batch * A)
+            floors_at = ticket_buf.data_ptr() + 4 * batch * plan.tiles if floors else None
         lib = _build.library()
         rc = lib.saccot_anchor_topb_stream(
             ptr(P), ptr(Q), ptr(anchors), ptr(mask), ptr(anchor_mask), ptr(nbr_s),
-            ptr(nbr_idx), batch, N, A, B, int(tile_n), float(compat_tau),
-            float(np.float32(1.0 / compat_tau)), float(min_separation), stream_of(nbr_s),
+            ptr(nbr_idx), ptr(part_s), ptr(part_i), ptr(ticket_buf), floors_at, batch,
+            N, A, B, plan.warps, plan.chunk_n, float(compat_tau),
+            float(np.float32(1.0 / compat_tau)), float(min_separation), stream,
         )
         _build.check(rc, "anchor_topb_stream")
         _build.LAUNCHES["anchor_topb_stream"] += 1

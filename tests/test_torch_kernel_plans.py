@@ -227,14 +227,15 @@ def check_anchor_kernel(B, N, device):
     P, Q, mask, anchors, groups = anchor_case(2, N, 41, device)
     args = (P, Q, anchors, B, 0.05, 0.01)
     kw = dict(mask=mask, anchor_mask=torch.gather(mask, 1, anchors))
-    stream = ktri.anchor_neighbors_stream(*args, **kw, tile_n=256)
+    stream = ktri.anchor_neighbors_stream(*args, **kw, chunk_n=256)
     ref = ktri.anchor_neighbors_reference(*args, **kw)
     modes = [{}, {"emit_candidates": True}] + ([{"top_t": min(4, B * (B - 1) // 2)}]
                                                 if B > 1 else [])
     for extra in modes:
         got = ktri.anchor_neighbors(*args, **kw, **extra)
-        # The warp-scope selection equals the streamed kernel's block-scope
-        # one bit for bit (a total order), and the plain version's scores.
+        # The whole row's selection equals the streamed kernel's over
+        # 256-column chunks bit for bit (a total order), and the plain
+        # version's scores.
         assert torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1])
         torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-6)
         # Planted ties: members of a group score alike, so the selected ones

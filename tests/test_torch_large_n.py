@@ -311,7 +311,7 @@ def test_kitti_problems_match_the_runner():
 @pytest.fixture(scope="module")
 def card_case():
     """Two problems at N=3,000 on the card (two degree tiles' worth of rows
-    above TRI_MIN_ROWS, three stream tiles of 1,024), with a mask."""
+    above TRI_MIN_ROWS, three stream chunks of 1,024), with a mask."""
     P, Q, _ = problem_batch([61, 62], device="cuda", n=3000, outlier_ratio=0.6)
     mask = torch.ones((2, 3000), device="cuda")
     mask[:, ::7] = 0
@@ -338,7 +338,7 @@ def test_stream_kernel_matches_fused_and_plain_on_card(card_case):
     anc = ktri.topk_stable(deg, A)[1]
     args = (P, Q, anc, B, PARAMS.compat_tau, PARAMS.min_separation)
     kw = dict(mask=mask, anchor_mask=torch.gather(mask, 1, anc))
-    got = ktri.anchor_neighbors_stream(*args, **kw, tile_n=1024)
+    got = ktri.anchor_neighbors_stream(*args, **kw, chunk_n=1024)
     fused = ktri.anchor_neighbors(*args, **kw)
     assert torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
     ref = ktri.anchor_neighbors_reference(*args, **kw)

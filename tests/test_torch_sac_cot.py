@@ -57,6 +57,28 @@ def test_register_batch_matches_jax(batch, config):
     assert recall(register_batch(P, Q, params), T_gt, 5.0, 0.05) == 1.0
 
 
+@pytest.mark.parametrize("config", ["exact", "fast"])
+def test_register_batch_weighted_matches_jax(batch, config):
+    """`scoring="weighted"` end to end against the JAX package, under the
+    count test's bounds: the weights are summed in another order on each
+    side, so a near-tie in the argmax could pick another hypothesis."""
+    params = dataclasses.replace(EXACT if config == "exact" else FAST, scoring="weighted")
+    P, Q, T_gt = batch
+    got = result_to_numpy(register_batch(P, Q, params))
+    ref = jregister_batch(jnp.asarray(P.numpy()), jnp.asarray(Q.numpy()),
+                          JaxSacCotParams(**dataclasses.asdict(params)),
+                          compat_impl="pallas", score_impl="pallas", pool_impl="pallas",
+                          solve_impl="pallas")
+    for b in range(3):
+        E = got.T[b].astype(np.float64) @ np.linalg.inv(np.asarray(ref.T[b], np.float64))
+        assert se3np.rotation_angle_deg(E[:3, :3]) < 0.1
+        assert np.linalg.norm(E[:3, 3]) < 1e-3
+    np.testing.assert_array_equal(got.num_inliers, np.asarray(ref.num_inliers))
+    np.testing.assert_array_equal(got.success, np.asarray(ref.success))
+    np.testing.assert_array_equal(got.num_valid_triangles, np.asarray(ref.num_valid_triangles))
+    assert recall(register_batch(P, Q, params), T_gt, 5.0, 0.05) == 1.0
+
+
 def test_register_matches_oracle_exhaustive():
     """Exhaustive regime (A >= N, B >= N-1): the pool is a superset of the
     oracle's clique enumeration, so the registrations agree."""
