@@ -20,11 +20,16 @@ Phases (any failure exits non-zero before the result lines are printed):
      scored alone (`hold_score`); the warps per block of the anchor kernel
      and the point splits of the score kernel at each shape, and the
      two-sided degree loop's `degree_plan` (rows a thread, column splits)
-     at every degree shape of phases 3, 6, 8 and 10;
+     at every degree shape of phases 3, 6, 8 and 10; the solve bit for bit
+     against its plain version, with its `solve_plan`;
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
-     during that run, and pairs/s;
+     during that run, and pairs/s; then with `scoring="weighted"` through
+     the kernels and the plain versions (`hold_weighted`): the same recall,
+     inliers within 1, and the hypothesis each picks on the kernel route's
+     pool, any flip printed with its margin (at most twice the weighted
+     score's tolerance);
   5. the 3DMatch sweep point (32 pairs, seeds 300+s, N=2048, 90% outliers,
      noise 0.01, exact configuration, 15 deg / 0.30 criterion) through the
      kernels and through the plain versions on the card; the fused anchor
@@ -36,14 +41,18 @@ Phases (any failure exits non-zero before the result lines are printed):
      kernel), the streamed top-B (also bit-identical across two calls and
      for each half of the anchors run alone, and to the fused kernel at
      N=3,000 under three plans, with and without masks: one chunk, chunks of
-     1,024, and chunks of 7 columns, fewer than B), the candidate top-T (also
-     against the
-     fused kernel's top-T mode), and the solve and score kernels at N=50,000,
-     score held as in phase 3 there and at the SP shard's 25,000 points;
+     1,024, and chunks of 7 columns, fewer than B); the card's launch floor
+     (an empty kernel, one thread); the candidate top-T under every W of
+     its sweep (the same bits, also for each half of the anchors alone, and
+     at N=3,000 the fused kernel's top-T mode's, with and without masks);
+     the solve bit for bit under every block size of its sweep at kitti
+     and the bench point, and the score kernel at N=50,000, held as in
+     phase 3 there and at the SP shard's 25,000 points;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
      pair and the launch counts of every kernel during the kernel runs;
+     weighted scoring held as in phase 4;
   8. the ring-step kernel and the direct-form degree route: ring sums over
      d = 2 and 4 blocks at the kitti shapes against the plain step, against
      the symmetric kernel's degrees and bit for bit across two calls; at the
@@ -69,7 +78,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      counts, and one {"compat_ops": {...}} line of the ten times.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
-(`bound_ms`, from the attribution script). The line before the last is a
+(`bound_ms`, from the attribution script), and its device ms over the
+launch floor (`device_over_floor`). The line before the last is a
 JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -141,6 +151,16 @@ def degree_plan_str(batch, R, C):
     return f"{plan_str(plan)}, {plan.blocks} blocks"
 
 
+def solve_plan_str(batch, K):
+    """`solve_plan` of batch x K hypotheses on card 0."""
+    import torch
+
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+
+    plan = ksolve.solve_plan(batch, K, ksolve.sm_count(torch.device("cuda", 0)))
+    return f"{plan_str(plan)}, {plan.blocks} blocks"
+
+
 def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
     """The fused anchor kernel in both modes against its plain version, its
     selections bit for bit against the streamed kernel's over many column
@@ -171,8 +191,7 @@ def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
             check(torch.equal(got[3][clear_t], ref[3][clear_t])
                   and torch.equal(got[4][clear_t], ref[4][clear_t]),
                   f"anchor_topb topt at {where}: decoded node ids differ")
-            ct = ktri.candidate_topt(got[0], got[1], *ktri.gather_neighbors(P, Q, got[1]), T,
-                                     tau, sep)
+            ct = ktri.candidate_topt(got[0], got[1], P, Q, T, tau, sep)
             check(all(torch.equal(x, y) for x, y in zip(ct, got[2:])),
                   f"anchor_topb topt at {where} differs from candidate_topt on its selections")
         # The whole row against 256-column chunks merged: bit for bit, since
@@ -227,6 +246,53 @@ def hold_score(r9, t3, P, Q, tau, where):
           f"max |kernel - plain| {(ws - wr).abs().max().item():.4g} (rtol {rtol:.3g}), "
           f"bit-identical across two calls and for hypotheses {h}.. alone "
           f"({plan_str(kscore.score_plan(batch, K - h, N, sms))})", flush=True)
+
+
+def hold_weighted(P, Q, params, T_gt, criterion, where):
+    """`register_batch(..., scoring="weighted")` through the kernels and the
+    plain versions: the same recall and inlier counts within 1. Then the pick
+    itself, on the kernel route's pool and solves: the hypothesis of highest
+    weighted score by the score kernel and by its plain version. A flip (a
+    pair where they differ) is printed with its margin, the plain scores'
+    gap between the two picks relative to the larger. Each side is within
+    `weighted_rtol(N)` of the plain score, so a flip can only fall between
+    hypotheses whose plain scores lie within 2 rtol of each other; one
+    further apart fails."""
+    import torch
+
+    from saccot_tpu_torch import register_batch
+    from saccot_tpu_torch.engine import triangles as tri_mod
+    from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import score as kscore
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+    from saccot_tpu_torch.utils.convert import recall
+
+    pw = dataclasses.replace(params, scoring="weighted")
+    got = register_batch(P, Q, pw)
+    ref = register_batch(P, Q, pw, impl="plain")
+    rec_k, rec_p = recall(got, T_gt, *criterion), recall(ref, T_gt, *criterion)
+    check(rec_k == rec_p, f"weighted at {where}: recall kernels {rec_k}, plain {rec_p}")
+    dn = (got.num_inliers - ref.num_inliers).abs().max().item()
+    check(dn <= 1, f"weighted at {where}: inlier counts differ by {dn}")
+    deg = kcompat.degrees(P, Q, P, Q, params)
+    pool = tri_mod.triangle_pool_from_points(P, Q, deg, pw)
+    r9, t3 = ksolve.solve3(P, Q, pool.triples)
+    args = (r9, t3, P, Q, params.inlier_tau)
+    sk = torch.where(pool.valid, kscore.score_hypotheses(*args, mode="weighted")[0], -1.0)
+    sp = torch.where(pool.valid, kscore.score_hypotheses_reference(*args, mode="weighted")[0],
+                     -1.0)
+    pk, pp = sk.argmax(dim=1), sp.argmax(dim=1)
+    rtol = kscore.weighted_rtol(P.shape[1])
+    flips = []
+    for b in (pk != pp).nonzero()[:, 0].tolist():
+        hi, lo = sp[b, pp[b]].item(), sp[b, pk[b]].item()
+        flips.append(dict(pair=b, kernel=pk[b].item(), plain=pp[b].item(),
+                          margin=(hi - lo) / hi))
+    print(f"  weighted at {where}: recall {rec_k:.4f} (plain {rec_p:.4f}), inliers within "
+          f"{dn}; the pick of {P.shape[0]} pairs: {len(flips)} flips {flips} (rtol {rtol:.3g})",
+          flush=True)
+    check(all(f["margin"] <= 2 * rtol for f in flips),
+          f"weighted at {where}: a flip beyond the kernel's tolerance: {flips}")
 
 
 def rot_deg(T_a, T_b):
@@ -358,7 +424,8 @@ def main():
     from saccot_tpu_torch.utils.convert import (
         KITTI_CRITERION, KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch, recall,
     )
-    from saccot_tpu_torch.utils.profile import kernel_device_ms
+    from saccot_tpu_torch.scripts import exp_small_kernels as xsmall
+    from saccot_tpu_torch.utils.profile import kernel_device_ms, launch_floor_ms
 
     # -- phase 2: build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -456,15 +523,16 @@ def main():
     triples = pool.triples
     r9, t3 = ksolve.solve3(P, Q, triples)
     r9_ref, t3_ref = ksolve.solve3_reference(P, Q, triples)
-    # Solve atol 1e-4: nvcc may contract to FMA where the plain version does
-    # not (the kernel spells every operation as an explicitly rounded one).
+    # Solve bit for bit: the kernel spells every operation as an explicitly
+    # rounded one, in the plain version's order.
     err = max((r9 - r9_ref).abs().max().item(), (t3 - t3_ref).abs().max().item())
-    check(err <= 1e-4, f"solve3: r9/t3 differ by {err}")
+    check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref), f"solve3: r9/t3 differ by {err}")
     row("solve3", "saccot_tpu_torch/csrc/solve3.cu", "saccot_tpu/kernels/solve3.py:73", err,
         time_ms(lambda: ksolve.solve3(P, Q, triples)),
         time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
         solve_cost(128, 1000, triples.shape[1]),
-        device_ms=kernel_device_ms(lambda: ksolve.solve3(P, Q, triples)))
+        device_ms=kernel_device_ms(lambda: ksolve.solve3(P, Q, triples)),
+        plan=solve_plan_str(128, triples.shape[1]))
 
     hold_score(r9_ref, t3_ref, P, Q, fast.inlier_tau, "the bench point")
     row("score", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
@@ -502,6 +570,8 @@ def main():
     for r in rows:
         r["launches"] = launches[r.pop("counter")]
         check(r["launches"] > 0, f"{r['name']} was not launched by register_batch")
+    for name, params in (("fast", fast), ("exact", exact)):
+        hold_weighted(P, Q, params, T_gt, (5.0, 0.05), f"the bench point, {name}")
     print(f"phase 4 ok: launches {launches}", flush=True)
 
     # -- phase 5: the 3DMatch sweep point, kernels vs plain versions ---------
@@ -610,11 +680,17 @@ def main():
         device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors_stream(*sargs)),
         plan=f"{plan_str(splan)}, {splan.blocks} blocks")
 
-    # Candidate top-T: scores within 1e-5 of the plain version (sums of three
-    # scores), node ids equal off ties; bit-identical to the fused kernel's
-    # top-T mode on the fused kernel's own selections.
-    nbr_p, nbr_q = ktri.gather_neighbors(PK, QK, got[1])
-    cargs = (got[0], got[1], nbr_p, nbr_q, T, tau, sep)
+    # The card's launch floor: an empty kernel, one thread, read as every
+    # kernel's device ms is.
+    floor = launch_floor_ms()
+    print(f"  launch floor: {floor:.4f} ms device (an empty kernel, one thread)", flush=True)
+
+    # Candidate top-T (row 7): scores within 1e-5 of the plain version (sums
+    # of three scores), node ids equal off ties. Under every W of the sweep:
+    # the same bits at kitti, and for each half of the anchors run alone; at
+    # N=3,000 the fused kernel's top-T mode's on its own selections, with and
+    # without masks (the same device functions at the same warp scope).
+    cargs = (got[0], got[1], PK, QK, T, tau, sep)
     cg = ktri.candidate_topt(*cargs)
     cr = ktri.candidate_topt_reference(*cargs)
     err_c = (cg[0] - cr[0]).abs().max().item()
@@ -622,31 +698,58 @@ def main():
     clear_t = off_ties(cr[0], 1e-6) & (cr[0] > 0)
     check(bool(clear_t.any()) and torch.equal(cg[1][clear_t], cr[1][clear_t])
           and torch.equal(cg[2][clear_t], cr[2][clear_t]), "candidate_topt: node ids differ")
-    c3 = ktri.candidate_topt(fu3[0], fu3[1], *ktri.gather_neighbors(P3k, Q3k, fu3[1]), T, tau,
-                             sep)
-    check(all(torch.equal(x, y) for x, y in zip(c3, fu3[2:])),
-          "candidate_topt differs from the fused kernel's top-T mode")
+    fu3mt = ktri.anchor_neighbors(*a3, **mkw, top_t=T)
+    for plan in xsmall.candidate_plans(2, A, B):
+        check(all(torch.equal(x, y) for x, y in zip(ktri._candidate(*cargs, plan), cg)),
+              f"candidate_topt ({plan_str(plan)}) differs from candidate_plan's bits at kitti")
+        for lo, hi in ((0, A // 2), (A // 2, A)):
+            half = ktri._candidate(got[0][:, lo:hi].contiguous(), got[1][:, lo:hi].contiguous(),
+                                   *cargs[2:], ktri.make_candidate_plan(2, hi - lo, B, plan.warps))
+            check(all(torch.equal(x, y[:, lo:hi]) for x, y in zip(half, cg)),
+                  f"candidate_topt (warps={plan.warps}): anchors {lo}..{hi} run alone differ")
+        for want in (fu3, fu3mt):
+            c3 = ktri._candidate(want[0], want[1], P3k, Q3k, T, tau, sep, plan)
+            check(all(torch.equal(x, y) for x, y in zip(c3, want[2:])),
+                  f"candidate_topt (warps={plan.warps}, mask={want is fu3mt}) differs from the "
+                  "fused kernel's top-T mode at N=3000")
+    cplan = ktri.candidate_plan(2, A, B)
+    print(f"  candidate_topt at kitti: {plan_str(cplan)}, {cplan.blocks} blocks; within "
+          f"{err_c:.3g} of plain; under warps {[p.warps for p in xsmall.candidate_plans(2, A, B)]}"
+          " the same bits, for each half of the anchors alone, and at N=3000 the fused top-T "
+          "mode's with and without masks", flush=True)
     row("candidate_topt", "saccot_tpu_torch/csrc/candidate_topt.cu",
         "saccot_tpu/kernels/triangles.py:378", err_c,
         time_ms(lambda: ktri.candidate_topt(*cargs)),
         time_ms(lambda: ktri.candidate_topt_reference(*cargs)), "candidate_topt",
         ((PAIR_OPS + 4) * 2 * A * B * (B - 1) // 2, 2 * A * B * 36 + 20 * 2 * A * T),
-        device_ms=kernel_device_ms(lambda: ktri.candidate_topt(*cargs)))
+        device_ms=kernel_device_ms(lambda: ktri.candidate_topt(*cargs)),
+        plan=f"{plan_str(cplan)}, {cplan.blocks} blocks")
 
     # Solve and score at N=50,000 (the TPU streamed the solve above its VMEM
-    # cap; the direct-index kernels take any N), tolerances as in phase 3.
+    # cap; the direct-index kernels take any N), score's tolerances as in
+    # phase 3. The solve (row 8) bit for bit under every block size of the
+    # sweep, here and at the bench point.
     kpool = tri_mod.triangle_pool_from_points(PK, QK, deg_ref, kp, impl="plain")
     ktrip = kpool.triples
     r9, t3 = ksolve.solve3(PK, QK, ktrip)
     r9_ref, t3_ref = ksolve.solve3_reference(PK, QK, ktrip)
     err = max((r9 - r9_ref).abs().max().item(), (t3 - t3_ref).abs().max().item())
-    check(err <= 1e-4, f"solve3 at N=50000: r9/t3 differ by {err}")
+    check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref),
+          f"solve3 at N=50000: r9/t3 differ by {err}")
+    for Ps, Qs, trip, where in ((PK, QK, ktrip, "kitti"), (P, Q, triples, "the bench point")):
+        want = ksolve.solve3_reference(Ps, Qs, trip)
+        for plan in xsmall.solve_plans(*trip.shape[:2]):
+            check(all(torch.equal(x, y) for x, y in zip(ksolve._solve(Ps, Qs, trip, plan), want)),
+                  f"solve3 ({plan_str(plan)}) at {where} differs from solve3_reference")
+    print(f"  solve3: bit-identical to solve3_reference in blocks of "
+          f"{list(xsmall.SOLVE_THREADS)} threads at kitti and the bench point", flush=True)
     row("solve3_large_n", "saccot_tpu_torch/csrc/solve3.cu",
         "saccot_tpu/kernels/solve3.py:124", err,
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
         time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3",
         solve_cost(2, 50000, ktrip.shape[1]),
-        device_ms=kernel_device_ms(lambda: ksolve.solve3(PK, QK, ktrip)))
+        device_ms=kernel_device_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
+        plan=solve_plan_str(2, ktrip.shape[1]))
     kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
     hold_score(*kargs, "kitti")
     row("score_large_n", "saccot_tpu_torch/csrc/score.cu", "saccot_tpu/kernels/score.py:31", 0.0,
@@ -703,6 +806,8 @@ def main():
         if "counter" in r:
             r["launches"] = kit_launches[r.pop("counter")]
             check(r["launches"] > 0, f"{r['name']} was not launched by register_batch at kitti")
+    for name, params in (("exact", kp), ("fast", kfast)):
+        hold_weighted(PK, QK, params, TK, KITTI_CRITERION, f"kitti, {name}")
     print("phase 7 ok", flush=True)
 
     # -- phase 8: the ring step and the direct-form degree route ---------------
@@ -965,6 +1070,8 @@ def main():
             mode_ms={r["mode"]: r["ms"] for r in attr if r["form"] == form}))
     print(f"phase 10 ok: launches {ops_launches}", flush=True)
 
+    for r in rows:
+        r["device_over_floor"] = r["device_ms"] / floor
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -54,36 +54,6 @@ __device__ __forceinline__ bool key_before(float v, int i, float bv, int bi) {
     return (v > bv) || (v == bv && i < bi);
 }
 
-// Block-wide arg-max under key_before. Every thread passes its local best;
-// every thread gets the block's best back. `red_v` / `red_i` hold one slot
-// per warp. blockDim.x must be a multiple of 32.
-__device__ __forceinline__ void block_argmax(float& v, int& i, float* red_v, int* red_i) {
-    const unsigned full = 0xffffffffu;
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(full, v, off);
-        const int oi = __shfl_down_sync(full, i, off);
-        if (key_before(ov, oi, v, i)) { v = ov; i = oi; }
-    }
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        const int nwarps = blockDim.x >> 5;
-        float bv = red_v[0];
-        int bi = red_i[0];
-        for (int w = 1; w < nwarps; ++w) {
-            if (key_before(red_v[w], red_i[w], bv, bi)) { bv = red_v[w]; bi = red_i[w]; }
-        }
-        red_v[0] = bv;
-        red_i[0] = bi;
-    }
-    __syncthreads();
-    v = red_v[0];
-    i = red_i[0];
-    __syncthreads();  // red_* may be rewritten by the next call
-}
-
 // An unsigned key that orders as the float does, for values that are not
 // NaN: -0 is first made +0 (x + 0 gives +0 for -0 and x otherwise), since
 // key_before treats the two as equal.
@@ -173,26 +143,13 @@ __device__ __forceinline__ int warp_top_b(Best2 best, int B, float floor_v, cons
     return B;
 }
 
-// The two scopes the candidate helpers below run at: a whole block (the
-// streamed path's candidate kernel, candidate_topt.cu, which passes its
-// block_argmax slots) or one warp (the fused anchor kernel, anchor_topb.cu,
-// one anchor per warp).
-struct BlockScope {
-    float* red_v;   // one slot per warp, for block_argmax
-    int* red_i;
-    __device__ __forceinline__ int rank() const { return threadIdx.x; }
-    __device__ __forceinline__ int size() const { return blockDim.x; }
-    __device__ __forceinline__ void sync() const { __syncthreads(); }
-    __device__ __forceinline__ void argmax(float& v, int& i) const {
-        block_argmax(v, i, red_v, red_i);
-    }
-};
-
+// The scope the candidate helpers below run at: one warp, one anchor (the
+// fused anchor kernel, anchor_topb.cu, and the streamed path's candidate
+// kernel, candidate_topt.cu).
 struct WarpScope {
     __device__ __forceinline__ int rank() const { return threadIdx.x & 31; }
     __device__ __forceinline__ int size() const { return 32; }
     __device__ __forceinline__ void sync() const { __syncwarp(); }
-    __device__ __forceinline__ void argmax(float& v, int& i) const { warp_argmax(v, i); }
 };
 
 // Candidate triangles of one anchor from its B selected neighbours, shared by
@@ -202,58 +159,71 @@ struct WarpScope {
 // <= 0 marks an invalid selection), sp / sq[3 * B] the neighbours' coordinates
 // (x, y, z per neighbour).
 // Fills grid_s[B * B]: entry b1 * B + b2 holds (s_b1 + s_b2) + s_b1b2 when
-// b1 < b2 and all three edges are positive, -1 otherwise. With `triu` set it
-// also writes the upper-triangle entries in np.triu_indices(B, k=1) order.
-// Every thread of the scope must call it; it ends with the scope's barrier.
-template <class Scope>
-__device__ __forceinline__ void candidate_grid(const Scope& scope, const float* sel_s,
+// b1 < b2 and all three edges are positive, -1 otherwise. The lanes fill the
+// grid with -1, then score only the B (B - 1) / 2 pairs b1 < b2, walking
+// them in np.triu_indices(B, k=1) order, 32 apart (row b1 holds B - 1 - b1
+// pairs); with `triu` set each pair's entry also goes to its index in that
+// order. Every lane of the warp must call it; it ends with the warp's
+// barrier.
+__device__ __forceinline__ void candidate_grid(const WarpScope& scope, const float* sel_s,
                                                const float* sp, const float* sq, int B,
                                                float tau, float inv_tau, float min_sep,
                                                float* grid_s, float* triu) {
-    for (int pid = scope.rank(); pid < B * B; pid += scope.size()) {
-        const int b1 = pid / B;
-        const int b2 = pid - b1 * B;
-        float v = -1.0f;
-        if (b1 < b2) {
-            const float* p1 = sp + 3 * b1;
-            const float* p2 = sp + 3 * b2;
-            const float* q1 = sq + 3 * b1;
-            const float* q2 = sq + 3 * b2;
-            const float dp = dist3(p1[0], p1[1], p1[2], p2[0], p2[1], p2[2]);
-            const float dq = dist3(q1[0], q1[1], q1[2], q2[0], q2[1], q2[2]);
-            const float sjk = compat_score(dp, dq, tau, inv_tau, min_sep);
-            const bool valid = sel_s[b1] > 0.0f && sel_s[b2] > 0.0f && sjk > 0.0f;
-            if (valid) v = add_rn(add_rn(sel_s[b1], sel_s[b2]), sjk);
-            if (triu) triu[b1 * (2 * B - b1 - 1) / 2 + (b2 - b1 - 1)] = v;
+    for (int pid = scope.rank(); pid < B * B; pid += scope.size()) grid_s[pid] = -1.0f;
+    scope.sync();
+    int b1 = 0;
+    int off = scope.rank();   // this lane's pair w, as row b1 and offset within it
+    for (int w = scope.rank(); w < B * (B - 1) / 2; w += scope.size()) {
+        while (off >= B - 1 - b1) {
+            off -= B - 1 - b1;
+            ++b1;
         }
-        grid_s[pid] = v;
+        const int b2 = b1 + 1 + off;
+        const float* p1 = sp + 3 * b1;
+        const float* p2 = sp + 3 * b2;
+        const float* q1 = sq + 3 * b1;
+        const float* q2 = sq + 3 * b2;
+        const float dp = dist3(p1[0], p1[1], p1[2], p2[0], p2[1], p2[2]);
+        const float dq = dist3(q1[0], q1[1], q1[2], q2[0], q2[1], q2[2]);
+        const float sjk = compat_score(dp, dq, tau, inv_tau, min_sep);
+        const bool valid = sel_s[b1] > 0.0f && sel_s[b2] > 0.0f && sjk > 0.0f;
+        const float v = valid ? add_rn(add_rn(sel_s[b1], sel_s[b2]), sjk) : -1.0f;
+        grid_s[b1 * B + b2] = v;
+        if (triu) triu[w] = v;
+        off += scope.size();
     }
     scope.sync();
 }
 
-// top_t argmax rounds over the candidate grid (score desc, pair id asc, the
-// order of lax.top_k over the flattened grid), each winner knocked out with
-// -inf. Writes max(score, -1) and the node ids sel_i[b1], sel_i[b2] of the
-// winner's two neighbours. Every thread of the scope must call it.
-template <class Scope>
-__device__ __forceinline__ void grid_top_t(const Scope& scope, float* grid_s, const int* sel_i,
-                                           int B, int top_t, float* cand_row,
+// top_t rounds over the candidate grid in the order of lax.top_k over the
+// flattened grid (score desc, pair id asc), on the one selection loop
+// (warp_top_b): lane l's share is the grid's entries l, l + 32, ..., each
+// winner is knocked out (spent()), at most 32 rounds a pass. Writes
+// max(score, -1) and the node ids sel_i[b1], sel_i[b2] of each winner's two
+// neighbours. Every lane of the warp must call it.
+__device__ __forceinline__ void grid_top_t(const WarpScope& scope, float* grid_s,
+                                           const int* sel_i, int B, int top_t, float* cand_row,
                                            long long* j_row, long long* k_row) {
-    for (int t = 0; t < top_t; ++t) {
+    const int lane = scope.rank();
+    const auto offer_share = [&](Best2& best) {
+        for (int pid = lane; pid < B * B; pid += 32) best.offer(grid_s[pid], pid);
+    };
+    for (int t0 = 0; t0 < top_t; t0 += 32) {
+        const int rounds = min(32, top_t - t0);
+        Best2 best;
+        offer_share(best);
         float v = -INFINITY;
-        int slot = B * B;
-        for (int pid = scope.rank(); pid < B * B; pid += scope.size()) {
-            if (key_before(grid_s[pid], pid, v, slot)) { v = grid_s[pid]; slot = pid; }
-        }
-        scope.argmax(v, slot);
-        if (scope.rank() == 0) {
-            slot = min(slot, B * B - 1);
+        int slot = kNone;
+        warp_top_b(best, rounds, -INFINITY, [&](int i) { grid_s[i] = spent(); },
+                   [&](float, int, Best2& bb) { offer_share(bb); }, v, slot);
+        if (lane < rounds) {
+            // top_t < B * B entries, so every round wins a real entry.
             const int b1 = slot / B;
-            const int b2 = slot - b1 * B;
-            cand_row[t] = fmaxf(v, -1.0f);
-            j_row[t] = sel_i[b1];
-            k_row[t] = sel_i[b2];
-            grid_s[slot] = -INFINITY;
+            cand_row[t0 + lane] = fmaxf(v, -1.0f);
+            j_row[t0 + lane] = sel_i[b1];
+            k_row[t0 + lane] = sel_i[slot - b1 * B];
+            // warp_top_b leaves a pass's last winner in the grid.
+            if (lane == rounds - 1) grid_s[slot] = spent();
         }
         scope.sync();
     }

@@ -1,8 +1,9 @@
 // Batched 3-point rigid solves: triples -> (r9, t3), one thread per hypothesis.
 //
-// Replaces saccot_tpu/kernels/solve3.py::_solve_kernel and fuses what the TPU
-// left to XLA (the Horn quaternion iteration and the rotation/translation
-// assembly, saccot_tpu/kernels/solve3.py:254-268). Per hypothesis the thread
+// Replaces saccot_tpu/kernels/solve3.py::_solve_kernel (and, at any N, its
+// streamed form _solve_stream_kernel) and fuses what the TPU left to XLA (the
+// Horn quaternion iteration and the rotation/translation assembly,
+// saccot_tpu/kernels/solve3.py:254-268). Per hypothesis the thread
 //   1. loads the 3 + 3 points by index (the TPU kernel gathered them with a
 //      one-hot matmul over split-bf16 coordinates; a direct load is exact),
 //   2. forms the centroids and the 9-entry cross-covariance H,
@@ -18,15 +19,25 @@
 // near-degenerate triples, whose column select is sensitive to the last bit,
 // then pick the same column in both.
 //
-// Bound: about 1,000 FP32 operations per hypothesis from registers, 1.3e5
-// hypotheses per batch at the bench point; loads are 6 scattered points and
-// 3 indices per thread, stores 12 floats. Latency is covered by the number of
-// threads in flight, not by staging.
+// Bound: about 1,350 FP32 operations per hypothesis from registers; loads
+// are 3 indices and the 6 scattered points they name, stores 12 floats.
+// Where the hypotheses fill the card (the bench point: 1.3e5 of them) the
+// instruction rate bounds it. Where they do not (the kitti point: 2 x 2,048
+// hypotheses, a warp or two an SM) the time is one thread's chain of
+// dependent steps: the index load, the point loads it names, eight
+// squarings, each ending in a root and a division, two polish steps.
+//
+// Design: one thread per hypothesis, grid (ceil(K / threads), batch), with
+// `threads` a block from kernels/solve3.py solve_plan: 128 where such blocks
+// cover the SMs, 64 where they would leave SMs idle, so few hypotheses
+// spread over more SMs. A form with four lanes a hypothesis (each lane one
+// row of every square, the entries exchanged by warp shuffles) was measured
+// and lost at the kitti point (PERF.md lists the readings).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;
 
 using saccot::add_rn;
 using saccot::dot4_rn;
@@ -148,12 +159,12 @@ __device__ __forceinline__ float one_minus_2(float x, float y) {  // 1 - 2 * (x 
     return sub_rn(1.0f, mul_rn(2.0f, add_rn(x, y)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 solve3_kernel(const float* __restrict__ P, const float* __restrict__ Q,
               const long long* __restrict__ triples, float* __restrict__ r9,
               float* __restrict__ t3, int N, int K) {
     const int b = blockIdx.y;
-    const int k = blockIdx.x * kThreads + threadIdx.x;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= K) return;
     const float* Pb = P + static_cast<long long>(b) * N * 3;
     const float* Qb = Q + static_cast<long long>(b) * N * 3;
@@ -213,10 +224,14 @@ solve3_kernel(const float* __restrict__ P, const float* __restrict__ Q,
 
 }  // namespace
 
+// `threads` a block: a multiple of 32, at most 256.
 extern "C" int saccot_solve3(const void* P, const void* Q, const void* triples, void* r9,
-                             void* t3, int batch, int N, int K, void* stream) {
-    const dim3 grid((K + kThreads - 1) / kThreads, batch);
-    solve3_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                             void* t3, int batch, int N, int K, int threads, void* stream) {
+    if (threads < 32 || threads > kMaxThreads || threads % 32) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid((K + threads - 1) / threads, batch);
+    solve3_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(P), static_cast<const float*>(Q),
         static_cast<const long long*>(triples), static_cast<float*>(r9),
         static_cast<float*>(t3), N, K);

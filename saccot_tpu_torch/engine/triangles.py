@@ -8,8 +8,9 @@ kernel route (`impl="pallas"`):
      triangles among them. Up to N = MAX_N_FUSED one fused kernel does both
      (kernels/triangles.anchor_neighbors); above it the neighbours are
      streamed (anchor_neighbors_stream) and the candidates scored from the
-     gathered neighbour coordinates: by `candidate_topt` in the fast config,
-     by `_pool_from_neighbors` in torch in the exact one;
+     neighbours' coordinates: by `candidate_topt` in the fast config, which
+     reads them from P and Q by node id, by `_pool_from_neighbors` in torch,
+     on gathered coordinates, in the exact one;
   3. fast config (`per_anchor_candidates = T > 0`): each anchor's top-T
      candidates, then a global top-K over the A*T of them (the identity when
      A*T <= K);
@@ -88,9 +89,8 @@ def triangle_pool_from_points(
         nbr_s, nbr_idx = (tri_kernels.anchor_neighbors_reference if plain
                           else tri_kernels.anchor_neighbors_stream)(*args, **kw)
         if params.per_anchor_candidates > 0:
-            nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
             cand = (tri_kernels.candidate_topt_reference if plain else tri_kernels.candidate_topt)(
-                nbr_s, nbr_idx, nbr_p, nbr_q, T, params.compat_tau, params.min_separation)
+                nbr_s, nbr_idx, P, Q, T, params.compat_tau, params.min_separation)
             return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
                                         params)
         return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params)

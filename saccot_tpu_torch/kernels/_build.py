@@ -42,7 +42,7 @@ LAUNCHES: Dict[str, int] = {
     "anchor_topb_candidates": 0,  # + all B(B-1)/2 candidate scores
     "anchor_topb_topt": 0,        # + per-anchor top-T candidates
     "anchor_topb_stream": 0,      # neighbours over column chunks, N > 4096
-    "candidate_topt": 0,          # top-T candidates from gathered neighbours
+    "candidate_topt": 0,          # top-T candidates from the neighbours' node ids
     "solve3": 0,
     "score": 0,
     "ring_degrees": 0,            # one ring step of the correspondence-sharded degrees
@@ -59,11 +59,12 @@ _SIGNATURES = {
     "saccot_compat_degrees_tri": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _P],
     "saccot_anchor_topb": [_P] * 10 + [_I] * 8 + [_F, _F, _F, _P],
     "saccot_anchor_topb_stream": [_P] * 11 + [_I] * 6 + [_F, _F, _F, _P],
-    "saccot_candidate_topt": [_P] * 7 + [_I] * 4 + [_F, _F, _F, _P],
-    "saccot_solve3": [_P] * 5 + [_I, _I, _I, _P],
+    "saccot_candidate_topt": [_P] * 7 + [_I] * 6 + [_F, _F, _F, _P],
+    "saccot_solve3": [_P] * 5 + [_I] * 4 + [_P],
     "saccot_score": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
     "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _I, _I, _P, _P, _P],
     "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_I, _I, _P, _P],
+    "saccot_empty": [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

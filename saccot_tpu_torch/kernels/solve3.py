@@ -4,11 +4,14 @@ Replaces `saccot_tpu/kernels/solve3.py::_solve_kernel` — and the Horn
 iteration and rotation assembly the TPU ran in XLA after it — with
 `csrc/solve3.cu`. Output is the SoA layout the scoring kernel reads:
 rotations `r9 [batch, 9, K]` (row-major entries), translations
-`t3 [batch, 3, K]`. The direct-index loads cover any N.
+`t3 [batch, 3, K]`. The direct-index loads cover any N. `solve_plan`
+chooses the threads a block (one thread a hypothesis); every plan gives the
+same bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -18,7 +21,44 @@ from saccot_tpu_torch.engine.svd3 import (
     rotation_entries_from_quaternion,
 )
 from saccot_tpu_torch.kernels import _build
-from saccot_tpu_torch.kernels._common import f32_points, index_tensor, ptr, stream_of
+from saccot_tpu_torch.kernels._common import (
+    f32_points, index_tensor, ptr, sm_count, stream_of,
+)
+
+MAX_THREADS = 256    # threads a block (the kernel's launch bound)
+# Blocks of THREADS wherever they cover the card's SMs (row 3's form at the
+# bench point); FEW_THREADS where they would leave SMs idle (the kitti
+# point's 2 x 2,048 hypotheses make 32 blocks of 128). Measured on an H100
+# over {32, 64, 128, 256} (`scripts/exp_small_kernels.py`; PERF.md lists the
+# readings, with those of a form of four lanes a hypothesis, which lost).
+THREADS = 128
+FEW_THREADS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SolvePlan:
+    """Grid of the solve kernel: (tiles, batch) blocks of `threads`
+    threads, one a hypothesis."""
+    batch: int
+    threads: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.batch
+
+
+def make_solve_plan(batch: int, K: int, threads: int) -> SolvePlan:
+    """The grid of `batch` x K hypotheses in blocks of `threads`."""
+    return SolvePlan(batch=batch, threads=threads, tiles=-(-K // threads))
+
+
+def solve_plan(batch: int, K: int, sms: int) -> SolvePlan:
+    """The solve kernel's grid for `batch` x K hypotheses on a card of `sms`
+    SMs: blocks of THREADS, or of FEW_THREADS where those would be fewer
+    than the SMs."""
+    plan = make_solve_plan(batch, K, THREADS)
+    return plan if plan.blocks >= sms else make_solve_plan(batch, K, FEW_THREADS)
 
 
 def solve3_reference(
@@ -56,8 +96,18 @@ def solve3(
     [batch, K, 3] int64) -> (r9 [batch, 9, K], t3 [batch, 3, K])."""
     if not P.is_cuda:
         return solve3_reference(P, Q, triples)
+    batch, K = triples.shape[:2]
+    return _solve(P, Q, triples, solve_plan(batch, K, sm_count(P.device)))
+
+
+def _solve(P, Q, triples, plan: SolvePlan):
+    """Launch `csrc/solve3.cu` on the grid of `plan` (any plan of the shape
+    gives the same bits)."""
     batch, N, _ = P.shape
     K = triples.shape[1]
+    if (plan != make_solve_plan(batch, K, plan.threads) or plan.threads % 32
+            or not 32 <= plan.threads <= MAX_THREADS):
+        raise ValueError(f"{plan} is no grid of {batch} x {K} hypotheses")
     P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
     triples = index_tensor(triples, (batch, K, 3), "triples")
     r9 = torch.empty((batch, 9, K), dtype=torch.float32, device=P.device)
@@ -66,7 +116,7 @@ def solve3(
         return r9, t3
     lib = _build.library()
     rc = lib.saccot_solve3(ptr(P), ptr(Q), ptr(triples), ptr(r9), ptr(t3),
-                           batch, N, K, stream_of(r9))
+                           batch, N, K, plan.threads, stream_of(r9))
     _build.check(rc, "solve3")
     _build.LAUNCHES["solve3"] += 1
     return r9, t3

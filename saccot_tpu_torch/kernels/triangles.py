@@ -15,7 +15,9 @@ Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
     `stream_plan`, one warp per (anchor, chunk), the chunks' top-Bs merged in
     the same launch);
   - `_candidate_topt_kernel` by `csrc/candidate_topt.cu` (`candidate_topt`:
-    the top-T mode's second half, from gathered neighbour coordinates).
+    the top-T mode's second half, on the streamed selections; one warp per
+    anchor, `candidate_plan` of them a block, reading the neighbours'
+    coordinates from P and Q by node id).
 Selection order is `lax.top_k`'s: score descending, lowest index first. The
 plain versions get it from a stable descending sort (`torch.topk` does not
 promise it).
@@ -149,6 +151,45 @@ def stream_plan(batch: int, A: int, N: int, B: int, sms: int,
     return plan
 
 
+# The candidate kernel (csrc/candidate_topt.cu) runs one warp per anchor, W
+# warps a block; each warp's region of dynamic shared memory holds its
+# selections (8 B words: scores, ids, coordinates) and the B x B pair grid,
+# at most 5 KB (B = 32). Measured on an H100 over W in {1, 2, 4, 8}
+# (`scripts/exp_small_kernels.py`; PERF.md lists the readings): W moved the
+# device time by under 0.0002 ms at the kitti point and its anchor shard, a
+# warp's own chain being what takes the time; 4 it is.
+CANDIDATE_WARPS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidatePlan:
+    """Grid of the candidate kernel: (tiles, batch) blocks of `warps` warps,
+    one anchor a warp, and a block's dynamic shared memory in bytes."""
+    batch: int
+    tiles: int
+    warps: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.batch
+
+
+def make_candidate_plan(batch: int, A: int, B: int, warps: int) -> CandidatePlan:
+    """The grid of `warps` anchors a block over `batch` x A anchors of B
+    selections."""
+    return CandidatePlan(batch=batch, tiles=-(-A // warps), warps=warps,
+                         smem_bytes=4 * warps * (8 * B + B * B))
+
+
+def candidate_plan(batch: int, A: int, B: int) -> CandidatePlan:
+    """The candidate kernel's grid for `batch` x A anchors of B selections
+    (1 <= B <= MAX_NEIGHBORS): CANDIDATE_WARPS anchors a block."""
+    if not 1 <= B <= MAX_NEIGHBORS:
+        raise ValueError(f"the candidate kernel takes 1 <= B <= {MAX_NEIGHBORS} (got B={B})")
+    return make_candidate_plan(batch, A, B, CANDIDATE_WARPS)
+
+
 def topk_stable(x: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last axis, ties to the
     lowest index — `lax.top_k`'s order."""
@@ -182,16 +223,14 @@ def anchor_neighbors_reference(
     if anchor_mask is not None:
         S = S * anchor_mask.to(S.dtype)[:, :, None]
     nbr_s, nbr_idx = topk_stable(S, B)                             # [batch, A, B]
-    if not (emit_candidates or top_t):
+    if top_t:
+        return (nbr_s, nbr_idx) + candidate_topt_reference(
+            nbr_s, nbr_idx, P, Q, top_t, compat_tau, min_separation)
+    if not emit_candidates:
         return nbr_s, nbr_idx
-
-    nbr_p, nbr_q = gather_neighbors(P, Q, nbr_idx)
-    if not top_t:
-        b1, b2 = np.triu_indices(B, k=1)
-        cand3 = _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation)
-        return nbr_s, nbr_idx, cand3[:, :, b1, b2]
-    return (nbr_s, nbr_idx) + candidate_topt_reference(
-        nbr_s, nbr_idx, nbr_p, nbr_q, top_t, compat_tau, min_separation)
+    b1, b2 = np.triu_indices(B, k=1)
+    cand3 = _candidate_grid(nbr_s, *gather_neighbors(P, Q, nbr_idx), compat_tau, min_separation)
+    return nbr_s, nbr_idx, cand3[:, :, b1, b2]
 
 
 def gather_neighbors(P: torch.Tensor, Q: torch.Tensor, nbr_idx: torch.Tensor):
@@ -220,15 +259,16 @@ def _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation) -> torch.Te
 def candidate_topt_reference(
     nbr_s: torch.Tensor,
     nbr_idx: torch.Tensor,
-    nbr_p: torch.Tensor,
-    nbr_q: torch.Tensor,
+    P: torch.Tensor,
+    Q: torch.Tensor,
     top_t: int,
     compat_tau: float,
     min_separation: float,
 ):
-    """Plain version of `candidate_topt` (same arguments and returns)."""
+    """Plain version of `candidate_topt` (same arguments and returns): the
+    neighbours' coordinates gathered, then the candidate grid ranked."""
     batch, A, B = nbr_s.shape
-    cand3 = _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation)
+    cand3 = _candidate_grid(nbr_s, *gather_neighbors(P, Q, nbr_idx), compat_tau, min_separation)
     v, slot = topk_stable(cand3.reshape(batch, A, B * B), top_t)
     cand_j = torch.gather(nbr_idx, 2, slot // B)
     cand_k = torch.gather(nbr_idx, 2, slot % B)
@@ -238,8 +278,8 @@ def candidate_topt_reference(
 def candidate_topt(
     nbr_s: torch.Tensor,
     nbr_idx: torch.Tensor,
-    nbr_p: torch.Tensor,
-    nbr_q: torch.Tensor,
+    P: torch.Tensor,
+    Q: torch.Tensor,
     top_t: int,
     compat_tau: float,
     min_separation: float,
@@ -247,24 +287,34 @@ def candidate_topt(
     """Each anchor's top-T candidate triangles from its selections.
 
     nbr_s [batch, A, B] float32 (descending; <= 0 marks an invalid
-    selection), nbr_idx [batch, A, B] int64 node ids, nbr_p / nbr_q
-    [batch, A, B, 3] their coordinates (`gather_neighbors`). Returns cand_s
-    [batch, A, T] float32 (max(score, -1)), cand_j, cand_k [batch, A, T] int64
-    node ids of each candidate's two neighbours: the top-T mode of
-    `anchor_neighbors` on the same selections.
+    selection), nbr_idx [batch, A, B] int64 node ids in [0, N), P, Q
+    [batch, N, 3] the points they name. Returns cand_s [batch, A, T] float32
+    (max(score, -1)), cand_j, cand_k [batch, A, T] int64 node ids of each
+    candidate's two neighbours: the top-T mode of `anchor_neighbors` on the
+    same selections, bit for bit, under any `candidate_plan`.
     """
     if not nbr_s.is_cuda:
-        return candidate_topt_reference(nbr_s, nbr_idx, nbr_p, nbr_q, top_t, compat_tau,
+        return candidate_topt_reference(nbr_s, nbr_idx, P, Q, top_t, compat_tau,
                                         min_separation)
     batch, A, B = nbr_s.shape
+    return _candidate(nbr_s, nbr_idx, P, Q, top_t, compat_tau, min_separation,
+                      candidate_plan(batch, A, B))
+
+
+def _candidate(nbr_s, nbr_idx, P, Q, top_t, compat_tau, min_separation, plan: CandidatePlan):
+    """Launch `csrc/candidate_topt.cu` on the grid of `plan` (any plan of the
+    shape gives the same bits)."""
+    batch, A, B = nbr_s.shape
+    N = P.shape[1]
     if not 1 <= B <= MAX_NEIGHBORS:
         raise ValueError(f"candidate_topt on CUDA takes 1 <= B <= {MAX_NEIGHBORS} (got {B})")
     if not 1 <= top_t <= B * (B - 1) // 2:
         raise ValueError(f"top_t={top_t} must lie in [1, {B * (B - 1) // 2}]")
+    if plan != make_candidate_plan(batch, A, B, plan.warps) or not 1 <= plan.warps <= MAX_WARPS:
+        raise ValueError(f"{plan} is no grid of {batch} x {A} anchors of {B} selections")
     nbr_s = f32_tensor(nbr_s, (batch, A, B), "nbr_s")
     nbr_idx = index_tensor(nbr_idx, (batch, A, B), "nbr_idx")
-    nbr_p = f32_tensor(nbr_p, (batch, A, B, 3), "nbr_p")
-    nbr_q = f32_tensor(nbr_q, (batch, A, B, 3), "nbr_q")
+    P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
     dev = nbr_s.device
     cand = torch.empty((batch, A, top_t), dtype=torch.float32, device=dev)
     cand_j = torch.empty((batch, A, top_t), dtype=torch.int64, device=dev)
@@ -272,8 +322,8 @@ def candidate_topt(
     if batch and A:
         lib = _build.library()
         rc = lib.saccot_candidate_topt(
-            ptr(nbr_s), ptr(nbr_idx), ptr(nbr_p), ptr(nbr_q), ptr(cand), ptr(cand_j),
-            ptr(cand_k), batch, A, B, top_t, float(compat_tau),
+            ptr(nbr_s), ptr(nbr_idx), ptr(P), ptr(Q), ptr(cand), ptr(cand_j), ptr(cand_k),
+            batch, N, A, B, top_t, plan.warps, float(compat_tau),
             float(np.float32(1.0 / compat_tau)), float(min_separation), stream_of(cand),
         )
         _build.check(rc, "candidate_topt")

@@ -10,7 +10,9 @@ stream), the idle share 1 - busy / wall, the kernels launched per batch, the
 five kernels with the most device time, and the device ms per batch of each
 hand-written kernel (`csrc/`). Needs a CUDA device. `kernel_device_ms`
 gives the same device ms of the hand-written kernels for any call
-(`chip_smoke.py` reads it beside the CUDA-event times of the degree kernels).
+(`chip_smoke.py` reads it beside the CUDA-event times of the degree kernels),
+and `launch_floor_ms` that of an empty kernel launched as one thread: the
+least any launch takes on the card, as this reading sees it.
 """
 
 from __future__ import annotations
@@ -80,20 +82,33 @@ def _profile(fn, batches: int):
             if r.device_type == torch.autograd.DeviceType.CUDA and _device_us(r) > 0]
 
 
-def kernel_device_ms(fn, reps: int = 10) -> float:
+def kernel_device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
     """Device ms of one launch of each hand-written kernel that `fn`
     launches once, summed: `torch.profiler` over `reps` calls after one
     warm-up call, each kernel's device time over the launches the profiler
-    recorded (it may drop some)."""
+    recorded (it may drop some). A reading that recorded none of them (it
+    can drop all) is taken again, at most `attempts` times in all."""
     fn()
     torch.cuda.synchronize()
     names = own_kernel_names()
-    total_us = 0.0
-    for r in _profile(fn, reps):
-        m = _KERNEL_NAME.search(r.key)
-        if m and m.group(1) in names:
-            total_us += _device_us(r) / r.count
-    return total_us / 1e3
+    for _ in range(attempts):
+        rows = [r for r in _profile(fn, reps)
+                if (m := _KERNEL_NAME.search(r.key)) and m.group(1) in names]
+        if rows:
+            return sum(_device_us(r) / r.count for r in rows) / 1e3
+    raise RuntimeError(f"the profiler recorded no launch of the port's kernels in {attempts} "
+                       "readings")
+
+
+def launch_floor_ms(reps: int = 10) -> float:
+    """`kernel_device_ms` of the empty kernel of `csrc/launch_floor.cu`, one
+    thread on the current stream."""
+    lib = _build.library()
+
+    def launch():
+        _build.check(lib.saccot_empty(torch.cuda.current_stream().cuda_stream), "empty_kernel")
+
+    return kernel_device_ms(launch, reps)
 
 
 def profile_point(name: str, reps: int, batches: int) -> dict:

@@ -1,12 +1,13 @@
-"""Launch plans of the score kernel, the fused anchor kernel and the
-two-sided degree loop.
+"""Launch plans of the score kernel, the fused anchor kernel, the two-sided
+degree loop, the candidate top-T and the solve.
 
 `score_plan` splits the point axis across blocks where the hypothesis tiles
 alone would not fill the card; `anchor_plan` chooses how many anchors (one
 warp each) a block of the fused anchor kernel holds; `degree_plan` chooses
 the rows a thread of the two-sided degree loop (`compat_degrees.cu`,
-`ring_degrees.cu`, `compat_ops.cu`) and splits its column segments. All are
-pure Python and are checked here. The kernels themselves are held to their
+`ring_degrees.cu`, `compat_ops.cu`) and splits its column segments;
+`candidate_plan` chooses the anchors (one warp each) a block of the
+candidate top-T holds; `solve_plan` the threads a block of the solve. All are pure Python and are checked here. The kernels themselves are held to their
 plain versions on the card (skipped here: a CUDA kernel has no CPU mode).
 """
 
@@ -21,6 +22,7 @@ import torch
 from saccot_tpu_torch.kernels import compat as kcompat
 from saccot_tpu_torch.kernels import ring_compat as kring
 from saccot_tpu_torch.kernels import score as kscore
+from saccot_tpu_torch.kernels import solve3 as ksolve
 from saccot_tpu_torch.kernels import triangles as ktri
 from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch
 from saccot_tpu_torch.utils.params import SacCotParams
@@ -130,6 +132,115 @@ def test_anchor_plan_matches_the_kernel_source():
     assert _csrc_int("kMaxB", "anchor_topb.cu") == ktri.MAX_NEIGHBORS
     # WarpScratch: sel_s, sel_i (kMaxB each) and sp, sq (3 kMaxB each).
     assert ktri.WARP_SCRATCH_WORDS == 8 * ktri.MAX_NEIGHBORS
+
+
+# -- candidate_plan -----------------------------------------------------------------
+
+# (batch, A): the kitti point, its anchor shard, the bench point's anchors,
+# ragged and tiny shapes.
+CANDIDATE_SHAPES = [(2, 512), (2, 256), (128, 256), (3, 41), (1, 1), (2, 0)]
+
+
+@pytest.mark.parametrize("shape", CANDIDATE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("B", [1, 12, 16, 32])
+def test_candidate_plan_covers_every_anchor_once(shape, B):
+    batch, A = shape
+    plan = ktri.candidate_plan(batch, A, B)
+    assert 1 <= plan.warps <= ktri.MAX_WARPS
+    assert plan.tiles * plan.warps >= A > (plan.tiles - 1) * plan.warps or A == 0
+    assert plan.blocks == plan.tiles * batch
+    # Each warp's region: selections (8 B words) and the B x B grid, within
+    # the 48 KB a block gets without an opt-in.
+    assert plan.smem_bytes == 4 * plan.warps * (8 * B + B * B)
+    assert plan.smem_bytes <= ktri.ANCHOR_SMEM_BUDGET
+    assert plan == ktri.make_candidate_plan(batch, A, B, plan.warps)
+
+
+def test_candidate_plan_refuses_what_the_kernel_cannot_hold():
+    for B in (0, ktri.MAX_NEIGHBORS + 1):
+        with pytest.raises(ValueError):
+            ktri.candidate_plan(2, 512, B)
+    # The widest plan of the sweep at the widest B still fits 48 KB.
+    widest = ktri.make_candidate_plan(2, 512, ktri.MAX_NEIGHBORS, ktri.MAX_WARPS)
+    assert widest.smem_bytes == 40 * 1024 <= ktri.ANCHOR_SMEM_BUDGET
+
+
+def test_candidate_plan_matches_the_kernel_source():
+    src = (CSRC / "candidate_topt.cu").read_text()
+    assert _csrc_int("kMaxWarps", "candidate_topt.cu") == ktri.MAX_WARPS
+    assert _csrc_int("kMaxB", "candidate_topt.cu") == ktri.MAX_NEIGHBORS
+    assert "return 8 * B + B * B;" in src
+    # One warp an anchor: no block barrier, the helpers at warp scope.
+    assert "__syncthreads" not in src and "saccot::WarpScope scope{}" in src
+
+
+# -- solve_plan ---------------------------------------------------------------------
+
+# (batch, K): the kitti point, the 3DMatch point, the bench point, a TP rank's
+# share of the bench point, ragged and tiny shapes.
+SOLVE_SHAPES = [(2, 2048), (32, 2048), (128, 1024), (128, 512), (3, 257), (1, 1), (2, 0)]
+
+
+@pytest.mark.parametrize("shape", SOLVE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_solve_plan_covers_every_hypothesis_once(shape, sms):
+    batch, K = shape
+    plan = ksolve.solve_plan(batch, K, sms)
+    assert plan.threads in (ksolve.THREADS, ksolve.FEW_THREADS)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= ksolve.MAX_THREADS
+    assert plan.tiles * plan.threads >= K > (plan.tiles - 1) * plan.threads or K == 0
+    assert plan.blocks == plan.tiles * batch
+    assert plan == ksolve.make_solve_plan(batch, K, plan.threads)
+
+
+@pytest.mark.parametrize("shape", [(128, 1024), (128, 512), (32, 2048), (64, 2048)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_solve_plan_keeps_blocks_of_128_where_they_cover_the_sms(shape):
+    """The bench point's 1.3e5 hypotheses, a TP rank's half of them and the
+    3DMatch point keep row 3's form, blocks of 128."""
+    plan = ksolve.solve_plan(*shape, H100_SMS)
+    assert plan.threads == ksolve.THREADS == 128
+    assert plan.blocks >= H100_SMS
+
+
+def test_solve_plan_at_few_hypotheses():
+    """Where blocks of 128 would be fewer than the SMs (the kitti point's
+    2 x 2,048 hypotheses make 32), the plan takes blocks of FEW_THREADS."""
+    assert ksolve.make_solve_plan(2, 2048, ksolve.THREADS).blocks == 32
+    plan = ksolve.solve_plan(2, 2048, H100_SMS)
+    assert plan.threads == ksolve.FEW_THREADS == 64 and plan.blocks == 64
+
+
+def test_solve_plan_matches_the_kernel_source():
+    src = (CSRC / "solve3.cu").read_text()
+    assert _csrc_int("kMaxThreads", "solve3.cu") == ksolve.MAX_THREADS
+    assert "solve3_kernel<<<grid, threads," in src
+
+
+def test_small_kernel_sweep_names_grids_the_kernels_run():
+    """`scripts/exp_small_kernels.py` sweeps W for the candidate top-T and
+    the threads a block for the solve; each is a grid its launcher accepts,
+    and the plans the wrappers choose at the swept shapes are among them."""
+    from saccot_tpu_torch.scripts import exp_small_kernels as xsmall
+
+    for A in (512, 256):
+        plans = xsmall.candidate_plans(2, A, 16)
+        assert {p.warps for p in plans} == {1, 2, 4, 8}
+        assert ktri.candidate_plan(2, A, 16) in plans
+    for batch, K in ((2, 2048), (32, 2048), (128, 1024)):
+        plans = xsmall.solve_plans(batch, K)
+        assert {p.threads for p in plans} == {32, 64, 128, 256}
+        assert ksolve.solve_plan(batch, K, H100_SMS) in plans
+
+
+def test_launch_floor_kernel_is_counted_as_the_ports():
+    """The empty kernel is one of the port's own kernel names, so
+    `kernel_device_ms` reads it as it reads the others."""
+    from saccot_tpu_torch.utils.profile import own_kernel_names
+
+    names = own_kernel_names()
+    assert "empty_kernel" in names
+    assert {"candidate_topt_kernel", "solve3_kernel"} <= names
 
 
 # -- the kernels on the card ------------------------------------------------------
@@ -250,8 +361,7 @@ def check_anchor_kernel(B, N, device):
             want = ktri.anchor_neighbors_reference(*args, **kw, **extra)[2]
             torch.testing.assert_close(got[2], want, rtol=0, atol=1e-5)
         if "top_t" in extra:
-            ct = ktri.candidate_topt(got[0], got[1], *ktri.gather_neighbors(P, Q, got[1]),
-                                     extra["top_t"], 0.05, 0.01)
+            ct = ktri.candidate_topt(got[0], got[1], P, Q, extra["top_t"], 0.05, 0.01)
             assert all(torch.equal(x, y) for x, y in zip(ct, got[2:]))
 
 
@@ -497,3 +607,30 @@ def test_ring_step_at_d1_equals_the_direct_route_on_card(n):
     step = kring.ring_degrees_step(blk, blk, torch.zeros((2, n), device="cuda"), 0, 0,
                                    DEG_PARAMS)
     assert torch.equal(step, kcompat.degrees(P, Q, P, Q, DEG_PARAMS, mxu=False))
+
+
+def solve_case(batch, n, k, device, seed=0):
+    """Kitti-like points and random triples of distinct points, a few with a
+    point repeated or all three the same (degenerate: the column select then
+    hangs on the last bit)."""
+    rng = np.random.default_rng(seed)
+    P, Q, _ = kitti_problem_batch(range(KITTI_SEED + seed, KITTI_SEED + seed + batch),
+                                  device="cpu", n=n)
+    tri = np.stack([np.stack([rng.choice(n, size=3, replace=False) for _ in range(k)])
+                    for _ in range(batch)]).astype(np.int64)
+    tri[:, :4, 2] = tri[:, :4, 1]      # two points the same
+    tri[:, 4:6] = tri[:, 4:6, :1]      # all three the same
+    return P.to(device), Q.to(device), torch.from_numpy(tri).to(device)
+
+
+@needs_cuda
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+@pytest.mark.parametrize("shape", [(2, 3000, 2048), (3, 1000, 257)], ids=["kitti_k", "ragged"])
+def test_solve_every_plan_equals_plain_on_card(shape, threads):
+    """Every block size gives the plain version's bits: each operation is
+    rounded on its own, in the plain order, on both sides."""
+    P, Q, tri = solve_case(*shape, torch.device("cuda"))
+    want = ksolve.solve3_reference(P, Q, tri)
+    plan = ksolve.make_solve_plan(shape[0], shape[2], threads)
+    got = ksolve._solve(P, Q, tri, plan)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package on the large-N path (N > 4096, the kitti
 configuration's route): the symmetric degree route, the streamed top-B
-neighbours, the candidate top-T from gathered neighbours, the exact pool from
+neighbours, the candidate top-T from the neighbours' ids, the exact pool from
 neighbours, the solve at N > 2048, and `register_batch` end to end.
 
 The JAX side runs as tests/test_kernels.py runs it (Pallas in interpret mode
@@ -162,9 +162,7 @@ def test_stream_then_candidates_equal_fused(case):
     kw = dict(mask=m, anchor_mask=torch.gather(m, 1, anc))
     fused = ktri.anchor_neighbors(*args, **kw, top_t=T)
     nbr_s, nbr_idx = ktri.anchor_neighbors_stream(*args, **kw)
-    nbr_p, nbr_q = ktri.gather_neighbors(P, Q, nbr_idx)
-    got = ktri.candidate_topt(nbr_s, nbr_idx, nbr_p, nbr_q, T, PARAMS.compat_tau,
-                              PARAMS.min_separation)
+    got = ktri.candidate_topt(nbr_s, nbr_idx, P, Q, T, PARAMS.compat_tau, PARAMS.min_separation)
     for g, f in zip((nbr_s, nbr_idx) + got, fused):
         assert torch.equal(g, f)
 
@@ -172,15 +170,16 @@ def test_stream_then_candidates_equal_fused(case):
 # -- candidate top-T ---------------------------------------------------------
 
 def test_candidate_topt_matches_pallas(case):
-    """`candidate_topt_reference` vs `candidate_topt_pallas` on the same
-    streamed selections: scores rtol/atol 1e-5 (as tests/test_kernels.py
-    holds the fused and streamed TPU kernels), node ids equal for real
-    candidates off ties."""
+    """`candidate_topt_reference` (which reads the neighbours' coordinates by
+    id) vs `candidate_topt_pallas` (given them gathered, as its TPU wrapper
+    gathers them) on the same streamed selections: scores rtol/atol 1e-5 (as
+    tests/test_kernels.py holds the fused and streamed TPU kernels), node ids
+    equal for real candidates off ties."""
     P, Q = case["P"], case["Q"]
     nbr_s, nbr_idx = _t(case, "nbr_s", "nbr_idx")
-    nbr_p, nbr_q = ktri.gather_neighbors(torch.from_numpy(P), torch.from_numpy(Q), nbr_idx)
     got = [x.numpy() for x in ktri.candidate_topt_reference(
-        nbr_s, nbr_idx, nbr_p, nbr_q, T, PARAMS.compat_tau, PARAMS.min_separation)]
+        nbr_s, nbr_idx, torch.from_numpy(P), torch.from_numpy(Q), T, PARAMS.compat_tau,
+        PARAMS.min_separation)]
     for b in range(2):
         idx = jnp.asarray(case["nbr_idx"][b], jnp.int32)
         ref = [np.asarray(x) for x in candidate_topt_pallas(
@@ -354,14 +353,56 @@ def test_candidate_topt_kernel_matches_fused_and_plain_on_card(card_case):
     anc = ktri.topk_stable(deg, A)[1]
     nbr_s, nbr_idx, *fused = ktri.anchor_neighbors(P, Q, anc, B, PARAMS.compat_tau,
                                                    PARAMS.min_separation, top_t=T)
-    nbr_p, nbr_q = ktri.gather_neighbors(P, Q, nbr_idx)
-    cargs = (nbr_s, nbr_idx, nbr_p, nbr_q, T, PARAMS.compat_tau, PARAMS.min_separation)
+    cargs = (nbr_s, nbr_idx, P, Q, T, PARAMS.compat_tau, PARAMS.min_separation)
     got = ktri.candidate_topt(*cargs)
     for g, f in zip(got, fused):
         assert torch.equal(g, f)
     ref = ktri.candidate_topt_reference(*cargs)
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
     clear = torch.from_numpy(_off_ties(ref[0].cpu().numpy(), 1e-6)).cuda() & (ref[0] > 0)
+    assert torch.equal(got[1][clear], ref[1][clear]) and torch.equal(got[2][clear], ref[2][clear])
+
+
+@needs_cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_candidate_topt_every_plan_equals_fused_on_card(card_case, warps, masked):
+    """Every W of the sweep gives the fused top-T mode's bits on the fused
+    kernel's own selections (the same device functions at the same warp
+    scope), and each half of the anchors run alone the full call's."""
+    P, Q, mask = card_case
+    deg = kcompat.degrees_reference(P, Q, P, Q, PARAMS)
+    anc = ktri.topk_stable(deg, A)[1]
+    kw = dict(mask=mask, anchor_mask=torch.gather(mask, 1, anc)) if masked else {}
+    nbr_s, nbr_idx, *fused = ktri.anchor_neighbors(P, Q, anc, B, PARAMS.compat_tau,
+                                                   PARAMS.min_separation, **kw, top_t=T)
+    plan = ktri.make_candidate_plan(2, A, B, warps)
+    args = (P, Q, T, PARAMS.compat_tau, PARAMS.min_separation)
+    got = ktri._candidate(nbr_s, nbr_idx, *args, plan)
+    assert all(torch.equal(g, f) for g, f in zip(got, fused))
+    for lo, hi in ((0, A // 2), (A // 2, A)):
+        part = ktri._candidate(nbr_s[:, lo:hi].contiguous(), nbr_idx[:, lo:hi].contiguous(),
+                               *args, ktri.make_candidate_plan(2, hi - lo, B, warps))
+        assert all(torch.equal(g, f[:, lo:hi]) for g, f in zip(part, fused))
+
+
+@needs_cuda
+@pytest.mark.parametrize("top_t", [32, 33, 45])
+def test_candidate_topt_more_rounds_than_lanes_on_card(card_case, top_t):
+    """Past 32 rounds the selection runs a second pass over what the first
+    left: the fused top-T mode's bits, and the plain version's ranking off
+    ties (B=10: 45 candidate pairs an anchor, every one of them at 45)."""
+    P, Q, _ = card_case
+    anc = ktri.topk_stable(kcompat.degrees_reference(P, Q, P, Q, PARAMS), A)[1]
+    nbr_s, nbr_idx, *fused = ktri.anchor_neighbors(P, Q, anc, B, PARAMS.compat_tau,
+                                                   PARAMS.min_separation, top_t=top_t)
+    cargs = (nbr_s, nbr_idx, P, Q, top_t, PARAMS.compat_tau, PARAMS.min_separation)
+    got = ktri.candidate_topt(*cargs)
+    assert all(torch.equal(g, f) for g, f in zip(got, fused))
+    ref = ktri.candidate_topt_reference(*cargs)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+    clear = torch.from_numpy(_off_ties(ref[0].cpu().numpy(), 1e-6)).cuda() & (ref[0] > 0)
+    assert clear.any()
     assert torch.equal(got[1][clear], ref[1][clear]) and torch.equal(got[2][clear], ref[2][clear])
 
 

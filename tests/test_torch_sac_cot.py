@@ -135,3 +135,34 @@ def test_register_batch_kernels_match_plain_on_card(batch, config):
     ref = register_batch(P, Q, params, impl="plain")
     assert recall(got, T_gt, 5.0, 0.05) == recall(ref, T_gt, 5.0, 0.05) == 1.0
     assert (got.num_inliers - ref.num_inliers).abs().max() <= 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("config", ["exact", "fast"])
+def test_register_batch_weighted_kernels_match_plain_on_card(batch, config):
+    """`scoring="weighted"` through the kernels and the plain versions: the
+    same registration (recall, inliers within 1), and on the kernel route's
+    pool the score kernel picks the plain version's hypothesis in every pair,
+    or one whose plain score lies within 2 rtol of it (each side is within
+    `weighted_rtol(N)` of the plain score)."""
+    from saccot_tpu_torch.engine import triangles as tri_mod
+    from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import score as kscore
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+
+    params = dataclasses.replace(EXACT if config == "exact" else FAST, scoring="weighted")
+    P, Q, T_gt = batch
+    P, Q = P.cuda(), Q.cuda()
+    got = register_batch(P, Q, params)
+    ref = register_batch(P, Q, params, impl="plain")
+    assert recall(got, T_gt, 5.0, 0.05) == recall(ref, T_gt, 5.0, 0.05) == 1.0
+    assert (got.num_inliers - ref.num_inliers).abs().max() <= 1
+    pool = tri_mod.triangle_pool_from_points(P, Q, kcompat.degrees(P, Q, P, Q, params), params)
+    args = (*ksolve.solve3(P, Q, pool.triples), P, Q, params.inlier_tau)
+    sk = torch.where(pool.valid, kscore.score_hypotheses(*args, mode="weighted")[0], -1.0)
+    sp = torch.where(pool.valid, kscore.score_hypotheses_reference(*args, mode="weighted")[0],
+                     -1.0)
+    pk, pp = sk.argmax(dim=1), sp.argmax(dim=1)
+    rows = torch.arange(P.shape[0], device=P.device)
+    margin = (sp[rows, pp] - sp[rows, pk]) / sp[rows, pp]
+    assert (margin <= 2 * kscore.weighted_rtol(P.shape[1])).all(), margin

@@ -126,8 +126,8 @@ def test_stream_plan_matches_the_kernel_source():
 
 def test_one_selection_loop():
     """The fused and streamed kernels select with the one warp loop of
-    common.cuh; neither has a loop of rounds, a block arg-max or a knockout
-    of its own."""
+    common.cuh, and so do the candidates' top-T rounds; no kernel has a loop
+    of rounds, a block arg-max or a knockout of its own."""
     common = (CSRC / "common.cuh").read_text()
     assert "int warp_top_b(" in common and "struct Best2" in common
     for src in ("anchor_topb.cu", "anchor_topb_stream.cu"):
@@ -135,11 +135,16 @@ def test_one_selection_loop():
         assert "saccot::warp_top_b(" in text, src
         assert "saccot::warp_argmax(" not in text and "block_argmax" not in text, src
         assert "struct Best2" not in text and "for (int r = 0; r < B" not in text, src
-    # The candidate kernel passes its scope: no block-form overloads remain.
-    assert "saccot::BlockScope scope{red_v, red_i}" in (CSRC / "candidate_topt.cu").read_text()
+    # The candidate kernel runs the candidate helpers at the fused kernel's
+    # warp scope: no block scope, block arg-max or block-form overload remains.
+    assert "saccot::WarpScope scope{}" in (CSRC / "candidate_topt.cu").read_text()
+    assert "BlockScope" not in common and "block_argmax" not in common
     assert "The block form" not in common
     assert len(re.findall(r"void candidate_grid\(", common)) == 1
     assert len(re.findall(r"void grid_top_t\(", common)) == 1
+    # The candidates' top-T rounds run on the same loop.
+    top_t = common[common.index("void grid_top_t("):]
+    assert "warp_top_b(best, rounds" in top_t and "warp_argmax(" not in top_t
 
 
 def test_plan_sweep_names_grids_the_kernel_runs():
