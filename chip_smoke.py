@@ -75,7 +75,19 @@ Phases (any failure exits non-zero before the result lines are printed):
      N=50,000, `full` there bit for bit against the production tri and
      two-sided kernels, then that script's path
      (`saccot_tpu_torch.scripts.exp_compat_ops`) at N=50,000 with its launch
-     counts, and one {"compat_ops": {...}} line of the ten times.
+     counts, and one {"compat_ops": {...}} line of the ten times;
+ 11. the cloud pipeline at the bunny configuration (`register_clouds_batch`
+     on 4 two-view pairs of 8,192 points a view, ISS + SHOT, estimator
+     A=192, B=12, K=512): recall 1.0 under 5 deg / 0.05 on the kernel
+     route with launches of rows 1-4 counted; rows 1-4 against their plain
+     versions on the path's own masked correspondence sets ([4, 1024, 3],
+     as phase 3 holds them); the plain route picks the same keypoints and
+     correspondences and a transform within 0.1 deg; a repeat call, and
+     one with TF32 allowed, give the same bits; one pair with the trimmed
+     point-to-point ICP polish; host and device ms of each stage a pair
+     from the stages' profiler ranges in the timed calls, and one
+     {"bunny_pipeline": {...}} line with the launches per pair and the
+     device's idle share.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
 (`bound_ms`, from the attribution script), and its device ms over the
@@ -161,20 +173,22 @@ def solve_plan_str(batch, K):
     return f"{plan_str(plan)}, {plan.blocks} blocks"
 
 
-def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
+def hold_anchor(P, Q, anchors, B, T, tau, sep, where, mask=None, anchor_mask=None):
     """The fused anchor kernel in both modes against its plain version, its
     selections bit for bit against the streamed kernel's over many column
     chunks (256 columns each) and its top-T against `candidate_topt` on its
-    own selections. Returns the worst error of each mode."""
+    own selections; every call with the column and anchor masks given.
+    Returns the worst error of each mode."""
     import torch
 
     from saccot_tpu_torch.kernels import triangles as ktri
 
-    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, chunk_n=256)
+    mkw = dict(mask=mask, anchor_mask=anchor_mask)
+    stream = ktri.anchor_neighbors_stream(P, Q, anchors, B, tau, sep, chunk_n=256, **mkw)
     errs = {}
     for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
-        got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)
-        ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)
+        got = ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **mkw, **kw)
+        ref = ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **mkw, **kw)
         # Top-B scores exact to 1e-6: both sides evaluate the one predicate
         # with the same unfused operations. Indices must agree wherever the
         # neighbouring scores are not within 1e-6 (ties may swap).
@@ -201,43 +215,45 @@ def hold_anchor(P, Q, anchors, B, T, tau, sep, where):
         errs[mode] = max(err_s, err_c)
     A, N = anchors.shape[1], P.shape[1]
     plan = ktri.anchor_plan(N, B)
-    print(f"  anchor_topb at {where} (batch {P.shape[0]}, N={N}, A={A}, B={B}): {plan_str(plan)}, "
-          f"{-(-A // plan.warps)} blocks a pair; scores within 1e-6 of plain; selections "
-          "bit-identical to anchor_neighbors_stream(chunk_n=256), top-T to candidate_topt",
-          flush=True)
+    print(f"  anchor_topb at {where} (batch {P.shape[0]}, N={N}, A={A}, B={B}, "
+          f"masked {mask is not None}): {plan_str(plan)}, {-(-A // plan.warps)} blocks a pair; "
+          "scores within 1e-6 of plain; selections bit-identical to "
+          "anchor_neighbors_stream(chunk_n=256), top-T to candidate_topt", flush=True)
     return errs
 
 
-def hold_score(r9, t3, P, Q, tau, where):
-    """The score kernel against its plain version. Counts identical for every
-    hypothesis (each operation of the residual rounded on its own, as the
-    plain version does: no FMA), count-mode scores equal to them. Weighted
-    scores within `weighted_rtol(N)` of the plain version (the same terms,
-    bit for bit, summed in another order), the same bits in two calls and
-    for the second half of the hypotheses scored alone, a tensor-parallel
-    rank's share (the kernel's order of the sums depends on N alone)."""
+def hold_score(r9, t3, P, Q, tau, where, mask=None):
+    """The score kernel against its plain version, both with the point mask
+    given. Counts identical for every hypothesis (each operation of the
+    residual rounded on its own, as the plain version does: no FMA),
+    count-mode scores equal to them. Weighted scores within
+    `weighted_rtol(N)` of the plain version (the same terms, bit for bit,
+    summed in another order), the same bits in two calls and for the second
+    half of the hypotheses scored alone, a tensor-parallel rank's share (the
+    kernel's order of the sums depends on N alone)."""
     import torch
 
     from saccot_tpu_torch.kernels import score as kscore
 
     batch, _, K = r9.shape
     N = P.shape[1]
-    s, c = kscore.score_hypotheses(r9, t3, P, Q, tau)
-    rc = kscore.score_hypotheses_reference(r9, t3, P, Q, tau)[1]
+    s, c = kscore.score_hypotheses(r9, t3, P, Q, tau, mask=mask)
+    rc = kscore.score_hypotheses_reference(r9, t3, P, Q, tau, mask=mask)[1]
     diff = (c - rc).abs()
     check(diff.max().item() == 0, f"score at {where}: counts identical for "
           f"{(diff == 0).float().mean().item():.5f}, max diff {diff.max().item()}")
     check(torch.equal(s, c.float()), f"score at {where}: count-mode scores are not the counts")
-    ws, wc = kscore.score_hypotheses(r9, t3, P, Q, tau, mode="weighted")
-    wr = kscore.score_hypotheses_reference(r9, t3, P, Q, tau, mode="weighted")[0]
+    ws, wc = kscore.score_hypotheses(r9, t3, P, Q, tau, mask=mask, mode="weighted")
+    wr = kscore.score_hypotheses_reference(r9, t3, P, Q, tau, mask=mask, mode="weighted")[0]
     check(torch.equal(wc, rc), f"score weighted at {where}: counts differ")
     rtol = kscore.weighted_rtol(N)
     torch.testing.assert_close(ws, wr, rtol=rtol, atol=0.0)
-    check(torch.equal(ws, kscore.score_hypotheses(r9, t3, P, Q, tau, mode="weighted")[0]),
+    check(torch.equal(ws, kscore.score_hypotheses(r9, t3, P, Q, tau, mask=mask,
+                                                  mode="weighted")[0]),
           f"score weighted at {where}: two calls differ")
     h = K // 2
     half = kscore.score_hypotheses(r9[:, :, h:].contiguous(), t3[:, :, h:].contiguous(), P, Q,
-                                   tau, mode="weighted")[0]
+                                   tau, mask=mask, mode="weighted")[0]
     check(torch.equal(half, ws[:, h:]),
           f"score weighted at {where}: hypotheses {h}.. scored alone differ")
     sms = torch.cuda.get_device_properties(P.device).multi_processor_count
@@ -307,6 +323,182 @@ def recall_np(T, T_gt, rot_thresh_deg, trans_thresh):
     from saccot_tpu_torch.evaluation.metrics import registration_recall
 
     return registration_recall(zip(T, T_gt), rot_thresh_deg, trans_thresh)
+
+
+def hold_bunny_kernels(res, cfg, rows):
+    """Rows 1-4 against their plain versions on the inputs the bunny path
+    hands them: the correspondence sets of a `register_clouds_batch` result
+    in pr units with their mask ([4, 1024, 3], most rows masked), the
+    estimator's parameters; at phase 3's tolerances (degrees rtol 1e-5 /
+    atol 1e-3, masked rows 0; the anchor kernel as `hold_anchor`; the solve
+    bit for bit; counts as `hold_score`). Adds each row's worst error here
+    to its row as `pipeline_max_abs_err`."""
+    import torch
+
+    from saccot_tpu_torch.engine import triangles as tri_mod
+    from saccot_tpu_torch.features import pipeline as fp
+    from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+    from saccot_tpu_torch.kernels import triangles as ktri
+
+    where = "the bunny path"
+    params = fp.estimator_params(cfg)
+    P, Q = fp.pr_units(res.corr_P, res.resolution), fp.pr_units(res.corr_Q, res.resolution)
+    m = res.corr_mask
+    batch, N, _ = P.shape
+    # mask_rows and mask_cols the same tensor, as register_batch passes them:
+    # at N <= 2048 the two-sided kernel (row 1).
+    deg = kcompat.degrees(P, Q, P, Q, params, mask_rows=m, mask_cols=m)
+    deg_ref = kcompat.degrees_reference(P, Q, P, Q, params, mask_rows=m, mask_cols=m)
+    torch.testing.assert_close(deg, deg_ref, rtol=1e-5, atol=1e-3)
+    check(bool((deg[m == 0] == 0).all()), f"compat_degrees at {where}: a masked row has a degree")
+    A, B = min(params.num_anchors, N), min(params.neighbors_per_anchor, N - 1)
+    _, anchors = ktri.topk_stable(deg_ref, A)
+    anchor_err = hold_anchor(P, Q, anchors, B, 4, params.compat_tau, params.min_separation,
+                             where, mask=m, anchor_mask=torch.gather(m, 1, anchors))
+    pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, params, mask=m, impl="plain")
+    r9, t3 = ksolve.solve3(P, Q, pool.triples)
+    r9_ref, t3_ref = ksolve.solve3_reference(P, Q, pool.triples)
+    check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref), f"solve3 at {where}: r9/t3 differ")
+    hold_score(r9_ref, t3_ref, P, Q, params.inlier_tau, where, mask=m)
+    errs = {"compat_degrees": (deg - deg_ref).abs().max().item(),
+            "anchor_topb_candidates": anchor_err["candidates"],
+            "anchor_topb_topt": anchor_err["topt"], "solve3": 0.0, "score": 0.0}
+    for r in rows:
+        if r["name"] in errs:
+            r["pipeline_max_abs_err"] = errs[r["name"]]
+    print(f"  rows 1-4 at {where} (batch {batch}, N={N}, valid rows "
+          f"{m.sum(dim=1).int().tolist()}, A={A}, B={B}, K={pool.triples.shape[1]}): degrees "
+          f"within {errs['compat_degrees']:.3g} of plain, solve bit for bit, counts identical",
+          flush=True)
+
+
+def stage_lines(ranges, pairs, what):
+    """Print the profiler ranges of the pipeline's stages a pair: host ms
+    and device ms, each range's totals over `pairs`."""
+    for name, v in ranges.items():
+        print(f"  {what} {name}: {v['calls'] / pairs:g} entries, host {v['host_ms'] / pairs:.3f} "
+              f"ms, device {v['device_ms'] / pairs:.3f} ms a pair", flush=True)
+
+
+def phase11(dev, rows):
+    """The cloud pipeline at the bunny configuration: `register_clouds_batch`
+    on the 4 bunny pairs (seeds 9-12, 8,192 points a view), ISS + SHOT,
+    A=192, B=12, K=512, exact config: the feature stages pair by pair, then
+    one `register_batch` call on the [4, 1024, 3] correspondence sets
+    (rows 1-4). Counted on the kernel route, then the plain route on the
+    same clouds; rows 1-4 held to their plain versions on the path's own
+    inputs. Adds each of rows 1-4's launches in this run to its row. Stage
+    times come from the profiler ranges of the timed calls."""
+    import numpy as np
+    import torch
+
+    from saccot_tpu_torch.engine.icp import IcpParams
+    from saccot_tpu_torch.features import pipeline as fp
+    from saccot_tpu_torch.features.pipeline import (
+        BUNNY_CRITERION, BUNNY_N_POINTS, BUNNY_PAIRS, BUNNY_PIPE, BUNNY_SEED, bunny_pairs,
+    )
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.utils.profile import profile_call
+
+    seeds = range(BUNNY_SEED, BUNNY_SEED + BUNNY_PAIRS)
+    src, tgt, Tb = bunny_pairs(seeds, device=dev)
+    check(src.shape == tgt.shape == (BUNNY_PAIRS, BUNNY_N_POINTS, 3),
+          f"bunny clouds {tuple(src.shape)}, {tuple(tgt.shape)}")
+    plain_cfg = dataclasses.replace(BUNNY_PIPE, impl="plain")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bk = fp.register_clouds_batch(src, tgt, BUNNY_PIPE, device=dev)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pipe_launches = _build.launches()
+    for name in ("compat_degrees", "anchor_topb_candidates", "solve3", "score"):
+        check(pipe_launches[name] > 0, f"{name} was not launched by register_clouds_batch")
+    for r in rows:
+        if r["name"] in ("compat_degrees", "anchor_topb_candidates", "solve3", "score"):
+            r["pipeline_launches"] = pipe_launches[r["name"]]
+    hold_bunny_kernels(bk, BUNNY_PIPE, rows)
+    t0 = time.perf_counter()
+    bp = fp.register_clouds_batch(src, tgt, plain_cfg, device=dev)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    Tk, Tp = bk.registration.T.cpu().numpy(), bp.registration.T.cpu().numpy()
+    check(np.isfinite(Tk).all() and Tk.shape == (BUNNY_PAIRS, 4, 4),
+          "bunny: non-finite or misshapen transforms")
+    rec = recall_np(Tk, Tb, *BUNNY_CRITERION)
+    check(rec == 1.0, f"bunny: recall {rec} < 1.0 on the kernel route")
+    # The feature stages are shared: the same keypoints and correspondences
+    # bit for bit; the two estimator routes within 0.1 deg.
+    for name in ("num_keypoints_src", "num_keypoints_tgt", "num_correspondences"):
+        check(torch.equal(getattr(bk, name), getattr(bp, name)), f"bunny: {name} differ by route")
+    check(all(torch.equal(getattr(bk, f), getattr(bp, f)) for f in ("corr_P", "corr_Q", "corr_mask")),
+          "bunny: the routes matched different correspondences")
+    route_deg = [rot_deg(Tk[b], Tp[b]) for b in range(BUNNY_PAIRS)]
+    check(max(route_deg) < 0.1, f"bunny: kernel and plain transforms differ by {route_deg} deg")
+    again = fp.register_clouds_batch(src, tgt, BUNNY_PIPE, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(
+        (bk.registration.T, bk.registration.inliers, bk.corr_P, bk.corr_Q, bk.resolution),
+        (again.registration.T, again.registration.inliers, again.corr_P, again.corr_Q,
+         again.resolution))), "bunny: a repeat call gave other bits")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fp.register_clouds_batch(src, tgt, BUNNY_PIPE, device=dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(tf32.registration.T, bk.registration.T) and torch.equal(tf32.corr_P, bk.corr_P),
+          "bunny: TF32 allowed for matmuls changed the bits")
+    errs = [recall_np(Tk[b:b + 1], Tb[b:b + 1], *BUNNY_CRITERION) for b in range(BUNNY_PAIRS)]
+    print(f"  bunny: recall kernels {rec:.2f}, plain {recall_np(Tp, Tb, *BUNNY_CRITERION):.2f}, "
+          f"rotation errors {[round(rot_deg(Tk[b], Tb[b]), 4) for b in range(BUNNY_PAIRS)]} deg, "
+          f"kernel vs plain {[round(d, 6) for d in route_deg]} deg, registered {errs}", flush=True)
+    print(f"  bunny: keypoints {bk.num_keypoints_src.tolist()} / {bk.num_keypoints_tgt.tolist()}, "
+          f"correspondences {bk.num_correspondences.tolist()}, inliers "
+          f"{bk.registration.num_inliers.tolist()}, pr {bk.resolution.tolist()}", flush=True)
+    print(f"  bunny: first call {first_ms:.1f} ms (kernels), plain route {plain_ms:.1f} ms; "
+          f"launches {pipe_launches}", flush=True)
+    # The ICP polish, trimmed point-to-point in pr units, on the first pair.
+    icp_cfg = dataclasses.replace(BUNNY_PIPE, icp=IcpParams(max_iters=10, max_corr_dist=6.0,
+                                                            trim_frac=0.8))
+    pol = fp.register_clouds(src[0], tgt[0], icp_cfg, device=dev)
+    Ti = pol.registration.T.cpu().numpy()
+    check(np.isfinite(Ti).all() and float(pol.icp_rmse) > 0.0, "bunny ICP: non-finite result")
+    check(recall_np(Ti[None], Tb[:1], *BUNNY_CRITERION) == 1.0, "bunny ICP: not registered")
+    print(f"  bunny ICP (pair 0): rotation error {rot_deg(Ti, Tb[0]):.4f} deg (coarse "
+          f"{rot_deg(Tk[0], Tb[0]):.4f}), rmse {float(pol.icp_rmse):.4f} pr", flush=True)
+    # Timed calls (after the runs above warmed up); each stage's host and
+    # device ms from its profiler range in the same profile.
+    prof = profile_call(lambda: fp.register_clouds_batch(src, tgt, BUNNY_PIPE, device=dev),
+                        reps=3, batches=2, ranges=fp.STAGE_PREFIX)
+    prof_plain = profile_call(lambda: fp.register_clouds_batch(src, tgt, plain_cfg, device=dev),
+                              reps=2, batches=1, ranges=fp.STAGE_PREFIX)
+    prof_icp = profile_call(lambda: fp.register_clouds(src[0], tgt[0], icp_cfg, device=dev),
+                            reps=2, batches=1, ranges=fp.STAGE_PREFIX)
+    staged = sum(v["device_ms"] for v in prof["ranges"].values())
+    busy = prof["device_busy_ms_per_batch"]
+    print(f"  bunny: the stage ranges hold {staged:.3f} of {busy:.3f} device ms a batch", flush=True)
+    check(0.9 * busy <= staged <= 1.001 * busy,
+          f"bunny: the stage ranges hold {staged} of {busy} device ms a batch")
+    stage_lines(prof["ranges"], BUNNY_PAIRS, "bunny stage")
+    stage_lines(prof_icp["ranges"], 1, "bunny stage with ICP, pair 0:")
+    print(json.dumps({"bunny_pipeline": dict(
+        pairs=BUNNY_PAIRS,
+        wall_ms_per_pair=prof["wall_ms_per_batch"] / BUNNY_PAIRS,
+        device_busy_ms_per_pair=busy / BUNNY_PAIRS,
+        idle_share=prof["idle_share"],
+        kernels_per_pair=prof["kernels_per_batch"] / BUNNY_PAIRS,
+        stage_ms_per_batch=prof["ranges"],
+        own_kernels_ms_per_batch=prof["own_kernels_ms_per_batch"],
+        top_kernels=prof["top_kernels"],
+        plain_wall_ms_per_pair=prof_plain["wall_ms_per_batch"] / BUNNY_PAIRS,
+        plain_idle_share=prof_plain["idle_share"],
+        plain_kernels_per_pair=prof_plain["kernels_per_batch"] / BUNNY_PAIRS,
+        plain_stage_ms_per_batch=prof_plain["ranges"],
+        icp_pair_wall_ms=prof_icp["wall_ms_per_batch"],
+        icp_pair_idle_share=prof_icp["idle_share"],
+        icp_pair_kernels=prof_icp["kernels_per_batch"],
+        icp_pair_stage_ms=prof_icp["ranges"])}), flush=True)
+    print(f"phase 11 ok: bunny recall {rec:.2f}, launches {pipe_launches}", flush=True)
 
 
 def gloo_cuda_probe(dev):
@@ -1069,6 +1261,9 @@ def main():
             device_ms=full_device_ms[form],
             mode_ms={r["mode"]: r["ms"] for r in attr if r["form"] == form}))
     print(f"phase 10 ok: launches {ops_launches}", flush=True)
+
+    # -- phase 11: the cloud pipeline at the bunny configuration -----------
+    phase11(dev, rows)
 
     for r in rows:
         r["device_over_floor"] = r["device_ms"] / floor

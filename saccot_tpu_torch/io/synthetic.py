@@ -1,10 +1,12 @@
-"""Synthetic correspondence problems (the port's own copy of `blob_cloud`
-and `correspondence_problem` from `saccot_tpu/io/synthetic.py`).
+"""Synthetic problems (the port's own copy of `blob_cloud`,
+`correspondence_problem` and `two_view_pair` from
+`saccot_tpu/io/synthetic.py`).
 
 A smooth closed surface (a spherical-harmonic-deformed sphere), a planted
-rigid transform, and correspondence sets with a controlled outlier
-fraction. Deterministic given the seed: the same seed gives the JAX
-package's arrays bit for bit (`tests/test_torch_isolation.py`).
+rigid transform, correspondence sets with a controlled outlier fraction,
+and two partially overlapping noisy views of one surface for the
+cloud-to-transform pipeline. Deterministic given the seed: the same seed
+gives the JAX package's arrays bit for bit (`tests/test_torch_isolation.py`).
 """
 
 from __future__ import annotations
@@ -71,4 +73,38 @@ def correspondence_problem(
         Q=Q.astype(np.float32),
         T_gt=T_gt,
         gt_inliers=gt_inliers,
+    )
+
+
+def two_view_pair(
+    seed: int = 0,
+    n_points: int = 8192,
+    overlap: float = 0.7,
+    noise: float = 0.003,
+    max_angle: float = np.pi / 3,
+    max_trans: float = 0.5,
+) -> Dict[str, np.ndarray]:
+    """Two partially overlapping views of one blob surface.
+
+    The source view keeps the points above one quantile of their direction
+    along a random axis, the target view those below another, sharing an
+    `overlap` fraction in the middle; each is cut at `n_points`. The target
+    is transformed by T_gt (target = T_gt * source frame), and each view
+    gets independent sensor noise.
+    """
+    rng = np.random.default_rng(seed)
+    cloud = blob_cloud(rng, n_points * 2)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    d = (cloud / np.linalg.norm(cloud, axis=1, keepdims=True)) @ axis
+    src = cloud[d > np.quantile(d, 0.5 - overlap / 2)][:n_points]
+    tgt_world = cloud[d < np.quantile(d, 0.5 + overlap / 2)][:n_points]
+
+    T_gt = se3np.random_transform(rng, max_angle_rad=max_angle, max_trans=max_trans)
+    src_noisy = src + rng.normal(scale=noise, size=src.shape)
+    tgt = se3np.apply_T(T_gt, tgt_world) + rng.normal(scale=noise, size=tgt_world.shape)
+    return dict(
+        source=src_noisy.astype(np.float32),
+        target=tgt.astype(np.float32),
+        T_gt=T_gt,
     )

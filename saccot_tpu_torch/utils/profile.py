@@ -23,6 +23,7 @@ import json
 import re
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -71,15 +72,51 @@ def _device_us(row) -> float:
     return 0.0
 
 
-def _profile(fn, batches: int):
-    """The CUDA kernel rows of `torch.profiler` over `batches` calls of fn."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+def _total_device_us(row) -> float:
+    """Device time of the kernels launched inside a host row, its children's
+    included."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(row, name):
+            return float(getattr(row, name))
+    return 0.0
+
+
+def profiler_rows(fn, batches: int):
+    """`torch.profiler`'s rows (`key_averages()`) over `batches` calls of fn;
+    the device is traced where there is one."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(batches):
             fn()
-        torch.cuda.synchronize()
-    return [r for r in prof.key_averages()
-            if r.device_type == torch.autograd.DeviceType.CUDA and _device_us(r) > 0]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def _kernel_rows(rows):
+    """The CUDA kernel rows, without the device side of `record_function`
+    ranges (a range's span, not a kernel)."""
+    return [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(r, "is_user_annotation", False) and _device_us(r) > 0]
+
+
+def _profile(fn, batches: int):
+    """The CUDA kernel rows of `torch.profiler` over `batches` calls of fn."""
+    return _kernel_rows(profiler_rows(fn, batches))
+
+
+def range_ms(rows, prefix: str, batches: int) -> dict:
+    """{name: dict(calls, host_ms, device_ms)} a call, for each
+    `record_function` range named prefix + name among the profiler's rows
+    over `batches` calls: its entries, the host wall ms inside it and the
+    device ms of the kernels launched inside it."""
+    return {r.key[len(prefix):]: dict(calls=r.count / batches,
+                                      host_ms=r.cpu_time_total / 1e3 / batches,
+                                      device_ms=_total_device_us(r) / 1e3 / batches)
+            for r in rows
+            if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith(prefix)}
 
 
 def kernel_device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
@@ -111,17 +148,23 @@ def launch_floor_ms(reps: int = 10) -> float:
     return kernel_device_ms(launch, reps)
 
 
-def profile_point(name: str, reps: int, batches: int) -> dict:
-    dev = torch.device("cuda", 0)
-    (P, Q), params = POINTS[name](dev)
-    register_batch(P, Q, params)
+def profile_call(fn, reps: int = 5, batches: int = 3, ranges: Optional[str] = None) -> dict:
+    """The wall ms of one call of fn (host clock around `reps` calls after
+    one warm-up, ending in `torch.cuda.synchronize()`), and from
+    `torch.profiler` over `batches` calls: the device busy ms a call (the
+    sum of CUDA kernel times; the port runs on one stream), the idle share
+    1 - busy / wall, the kernels launched a call, the five kernels with the
+    most device time, the device ms a call of each hand-written kernel and,
+    given a prefix `ranges`, `range_ms` of the ranges it names."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        register_batch(P, Q, params)
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = _profile(lambda: register_batch(P, Q, params), batches)
+    rows = profiler_rows(fn, batches)
+    kernels = _kernel_rows(rows)
     busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / batches
     top = sorted(kernels, key=_device_us, reverse=True)[:5]
     names, own = own_kernel_names(), {}
@@ -130,13 +173,21 @@ def profile_point(name: str, reps: int, batches: int) -> dict:
         if m and m.group(1) in names:
             own[m.group(1)] = own.get(m.group(1), 0.0) + _device_us(r) / 1e3 / batches
     return dict(
-        point=name, batch=P.shape[0], n=P.shape[1], wall_ms_per_batch=wall_ms,
-        device_busy_ms_per_batch=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+        wall_ms_per_batch=wall_ms, device_busy_ms_per_batch=busy_ms,
+        idle_share=1.0 - busy_ms / wall_ms,
         kernels_per_batch=sum(r.count for r in kernels) / batches,
         top_kernels=[dict(name=r.key[:80], ms_per_batch=_device_us(r) / 1e3 / batches,
                           calls_per_batch=r.count / batches) for r in top],
         own_kernels_ms_per_batch=own,
+        **({} if ranges is None else dict(ranges=range_ms(rows, ranges, batches))),
     )
+
+
+def profile_point(name: str, reps: int, batches: int) -> dict:
+    dev = torch.device("cuda", 0)
+    (P, Q), params = POINTS[name](dev)
+    return dict(point=name, batch=P.shape[0], n=P.shape[1],
+                **profile_call(lambda: register_batch(P, Q, params), reps, batches))
 
 
 def main(argv=None) -> int:
