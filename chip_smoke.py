@@ -87,7 +87,22 @@ Phases (any failure exits non-zero before the result lines are printed):
      point-to-point ICP polish; host and device ms of each stage a pair
      from the stages' profiler ranges in the timed calls, and one
      {"bunny_pipeline": {...}} line with the launches per pair and the
-     device's idle share.
+     device's idle share;
+ 12. sequence SLAM and the sampler ablation: `run_sequence` at the slam
+     configuration (10 scans, 13 edges of N=512, A=128, B=12, K=512; 10 PGO
+     steps dense, track BA of 5 steps on up to 2,048 landmarks) by the
+     kernel and the plain route: all 13 edges registered, the same BA track
+     stats, final poses within 1e-3, ATE < 0.05, a repeat call bit for bit,
+     rows 1-4's launches counted, host and device ms of each stage from the
+     profiler ranges `slam/<stage>`; the same at 128 scans (170 edges, PGO
+     by PCG): the same edges registered, poses within 1e-3; the JAX tests'
+     scale points (PGO by PCG at M=256, BA at M=128, L=4,096) within their
+     bounds; the sampler ablation at the recorded points (16 pairs, N=1,000,
+     K = 128 and 512, 80/90/95% outliers) by both routes: recall saccot >=
+     edge >= random on the kernel route, saccot equal by route, edge and
+     random within 1/16, rows 1-4's launches counted; the sharded BA and PGO
+     dry runs on two spawned ranks, each within 2e-4 of one rank; one
+     {"slam": {...}} line of the readings.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
 (`bound_ms`, from the attribution script), and its device ms over the
@@ -325,52 +340,106 @@ def recall_np(T, T_gt, rot_thresh_deg, trans_thresh):
     return registration_recall(zip(T, T_gt), rot_thresh_deg, trans_thresh)
 
 
-def hold_bunny_kernels(res, cfg, rows):
-    """Rows 1-4 against their plain versions on the inputs the bunny path
-    hands them: the correspondence sets of a `register_clouds_batch` result
-    in pr units with their mask ([4, 1024, 3], most rows masked), the
-    estimator's parameters; at phase 3's tolerances (degrees rtol 1e-5 /
-    atol 1e-3, masked rows 0; the anchor kernel as `hold_anchor`; the solve
-    bit for bit; counts as `hold_score`). Adds each row's worst error here
-    to its row as `pipeline_max_abs_err`."""
+def hold_path_kernels(P, Q, params, where, key, rows, mask=None, samples=()):
+    """Rows 1-4 against their plain versions on the inputs that a path hands
+    them: its correspondence sets P, Q [batch, N, 3] (with their mask, as
+    `register_batch` passes it, mask_rows and mask_cols the same tensor: at
+    N <= 2048 the two-sided kernel, row 1) and its estimator parameters; at
+    phase 3's tolerances (degrees rtol 1e-5 / atol 1e-3, masked rows 0; the
+    anchor kernel as `hold_anchor`; the solve bit for bit; counts as
+    `hold_score`). `samples`: further (name, triples [batch, K, 3]) that the
+    path solves and scores, each held the same way. Adds each row's worst
+    error here to its row as `<key>_max_abs_err` (the worst over calls)."""
     import torch
 
     from saccot_tpu_torch.engine import triangles as tri_mod
-    from saccot_tpu_torch.features import pipeline as fp
     from saccot_tpu_torch.kernels import compat as kcompat
     from saccot_tpu_torch.kernels import solve3 as ksolve
     from saccot_tpu_torch.kernels import triangles as ktri
 
-    where = "the bunny path"
-    params = fp.estimator_params(cfg)
-    P, Q = fp.pr_units(res.corr_P, res.resolution), fp.pr_units(res.corr_Q, res.resolution)
-    m = res.corr_mask
     batch, N, _ = P.shape
-    # mask_rows and mask_cols the same tensor, as register_batch passes them:
-    # at N <= 2048 the two-sided kernel (row 1).
-    deg = kcompat.degrees(P, Q, P, Q, params, mask_rows=m, mask_cols=m)
-    deg_ref = kcompat.degrees_reference(P, Q, P, Q, params, mask_rows=m, mask_cols=m)
+    deg = kcompat.degrees(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    deg_ref = kcompat.degrees_reference(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
     torch.testing.assert_close(deg, deg_ref, rtol=1e-5, atol=1e-3)
-    check(bool((deg[m == 0] == 0).all()), f"compat_degrees at {where}: a masked row has a degree")
+    if mask is not None:
+        check(bool((deg[mask == 0] == 0).all()),
+              f"compat_degrees at {where}: a masked row has a degree")
     A, B = min(params.num_anchors, N), min(params.neighbors_per_anchor, N - 1)
     _, anchors = ktri.topk_stable(deg_ref, A)
     anchor_err = hold_anchor(P, Q, anchors, B, 4, params.compat_tau, params.min_separation,
-                             where, mask=m, anchor_mask=torch.gather(m, 1, anchors))
-    pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, params, mask=m, impl="plain")
-    r9, t3 = ksolve.solve3(P, Q, pool.triples)
-    r9_ref, t3_ref = ksolve.solve3_reference(P, Q, pool.triples)
-    check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref), f"solve3 at {where}: r9/t3 differ")
-    hold_score(r9_ref, t3_ref, P, Q, params.inlier_tau, where, mask=m)
+                             where, mask=mask,
+                             anchor_mask=None if mask is None else torch.gather(mask, 1, anchors))
+    pool = tri_mod.triangle_pool_from_points(P, Q, deg_ref, params, mask=mask, impl="plain")
+    for name, triples in (("the estimator's pool", pool.triples),) + tuple(samples):
+        r9, t3 = ksolve.solve3(P, Q, triples)
+        r9_ref, t3_ref = ksolve.solve3_reference(P, Q, triples)
+        check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref),
+              f"solve3 at {where} on {name}: r9/t3 differ")
+        hold_score(r9_ref, t3_ref, P, Q, params.inlier_tau, f"{where} ({name})", mask=mask)
     errs = {"compat_degrees": (deg - deg_ref).abs().max().item(),
             "anchor_topb_candidates": anchor_err["candidates"],
             "anchor_topb_topt": anchor_err["topt"], "solve3": 0.0, "score": 0.0}
     for r in rows:
         if r["name"] in errs:
-            r["pipeline_max_abs_err"] = errs[r["name"]]
-    print(f"  rows 1-4 at {where} (batch {batch}, N={N}, valid rows "
-          f"{m.sum(dim=1).int().tolist()}, A={A}, B={B}, K={pool.triples.shape[1]}): degrees "
-          f"within {errs['compat_degrees']:.3g} of plain, solve bit for bit, counts identical",
+            r[f"{key}_max_abs_err"] = max(r.get(f"{key}_max_abs_err", 0.0), errs[r["name"]])
+    valid = "all" if mask is None else mask.sum(dim=1).int().tolist()
+    print(f"  rows 1-4 at {where} (batch {batch}, N={N}, valid rows {valid}, A={A}, B={B}, "
+          f"K={pool.triples.shape[1]}, solved and scored: the pool"
+          + "".join(f", {name}" for name, _ in samples) + "): degrees within "
+          f"{errs['compat_degrees']:.3g} of plain, solve bit for bit, counts identical",
           flush=True)
+
+
+def hold_bunny_kernels(res, cfg, rows):
+    """Rows 1-4 on the inputs the bunny path hands them: the correspondence
+    sets of a `register_clouds_batch` result in pr units with their mask
+    ([4, 1024, 3], most rows masked), the estimator's parameters
+    (`pipeline_max_abs_err`)."""
+    from saccot_tpu_torch.features import pipeline as fp
+
+    P, Q = fp.pr_units(res.corr_P, res.resolution), fp.pr_units(res.corr_Q, res.resolution)
+    hold_path_kernels(P, Q, fp.estimator_params(cfg), "the bunny path", "pipeline", rows,
+                      mask=res.corr_mask)
+
+
+def hold_slam_kernels(seq, dev, rows):
+    """Rows 1-4 on the inputs `run_sequence` hands them at the slam
+    configuration: the 13 edges' correspondence sets (N=512, no mask) under
+    SLAM_PARAMS (`slam_max_abs_err`)."""
+    import torch
+
+    from saccot_tpu_torch.slam import frontend as fe
+
+    P = torch.as_tensor(seq["edge_P"], device=dev).float()
+    Q = torch.as_tensor(seq["edge_Q"], device=dev).float()
+    hold_path_kernels(P, Q, fe.SLAM_PARAMS, "the slam configuration", "slam", rows)
+
+
+def hold_ablation_kernels(dev, rows):
+    """Rows 1-4 on the inputs the sampler ablation hands them, at each
+    (K, outlier ratio): the cell's 16 problems (N=1000, no mask) under
+    OBJ_PARAMS at budget K, and besides the estimator's pool the RANSAC
+    triples (top 3 of the pairs' priority fields) and the edge-guided
+    triples (top-K anchor-row edges completed at random) that the baselines
+    solve and score (`ablation_max_abs_err`)."""
+    import torch
+
+    from saccot_tpu_torch.engine import baselines as base
+    from saccot_tpu_torch.evaluation import ablation as abl
+    from saccot_tpu_torch.kernels import compat as kcompat
+
+    for K in abl.ABLATION_BUDGETS:
+        params = dataclasses.replace(abl.OBJ_PARAMS, max_hypotheses=K)
+        for ratio in abl.ABLATION_RATIOS:
+            P, Q, _, seeds = abl.ablation_problems(ratio, abl.ABLATION_PAIRS, 1000, 0.004, 0, dev)
+            batch, N, _ = P.shape
+            m = torch.ones((batch, N), dtype=torch.float32, device=dev)
+            u = base.priority_field(seeds, batch, K, N, dev)
+            random = base._random_triples(u, mask=m)
+            edge = base._edge_triples(P, Q, m, None, params, u, kcompat.degrees)[0]
+            hold_path_kernels(P, Q, params, f"the ablation (K={K}, {ratio:.0%} outliers)",
+                              "ablation", rows,
+                              samples=(("RANSAC's triples", random), ("edge triples", edge)))
 
 
 def stage_lines(ranges, pairs, what):
@@ -500,6 +569,248 @@ def phase11(dev, rows):
         icp_pair_stage_ms=prof_icp["ranges"])}), flush=True)
     print(f"phase 11 ok: bunny recall {rec:.2f}, launches {pipe_launches}", flush=True)
 
+
+# Rows 1-4 as run_sequence and the ablation launch them (the exact
+# configuration: row 2 in its candidates mode); the baselines run rows 1, 3
+# and 4, the saccot sampler all four.
+PATH_ROWS = ("compat_degrees", "anchor_topb_candidates", "solve3", "score")
+
+
+def slam_route_runs(seq, impl, dev):
+    """run_sequence at the slam configuration's arguments (10 PGO steps,
+    BA of 5 steps on up to 2,048 landmarks) on `seq`, by `impl`; its wall ms
+    (host clock, synchronized) and the kernel launches it made."""
+    import torch
+
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.slam import frontend as fe
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = fe.run_sequence(n_scans=len(seq["poses_gt"]), edges=seq["edges"], edge_P=seq["edge_P"],
+                          edge_Q=seq["edge_Q"], params=fe.SLAM_PARAMS, pgo_iters=10, run_ba=True,
+                          ba_iters=5, max_landmarks=2048, impl=impl, device=dev)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, _build.launches()
+
+
+def hold_slam_routes(k, p, seq, what, same_stats=True):
+    """Both routes of one sequence: every edge registered the same way, the
+    same BA track stats, final poses within 1e-3; returns the ATEs (PGO and
+    final) of each route."""
+    import torch
+
+    from saccot_tpu_torch.evaluation.metrics import ate
+
+    E = len(seq["edges"])
+    check(torch.equal(k.registration.success, p.registration.success),
+          f"{what}: the routes register different edges")
+    if same_stats:
+        for key in k.ba_stats:
+            same = (abs(k.ba_stats[key] - p.ba_stats[key]) <= 1e-6 * abs(p.ba_stats[key])
+                    if key == "huber_delta" else k.ba_stats[key] == p.ba_stats[key])
+            check(same, f"{what}: BA track stat {key} {k.ba_stats[key]} vs {p.ba_stats[key]}")
+    gap = (k.poses - p.poses).abs().max().item()
+    check(gap < 1e-3, f"{what}: final poses of the routes {gap} apart")
+    out = {}
+    for name, res in (("kernel", k), ("plain", p)):
+        check(bool(torch.isfinite(res.poses).all())
+              and res.poses.shape[0] == seq["poses_gt"].shape[0],
+              f"{what}: non-finite or misshapen poses ({name})")
+        pgo = res.pose_graph_result.poses.double().cpu().numpy()
+        out[name] = dict(
+            registered=int(res.registration.success.sum()), edges=E,
+            ate_pgo=ate(pgo, seq["poses_gt"])["rmse"],
+            ate=ate(res.poses.double().cpu().numpy(), seq["poses_gt"])["rmse"])
+    return out, gap
+
+
+def phase12(dev, rows):
+    """Sequence SLAM and the sampler ablation: `run_sequence` at the slam
+    configuration (10 scans, 13 edges of N=512, PGO dense, track BA) and at
+    128 scans (170 edges, PGO by PCG) by the kernel and the plain route;
+    the JAX tests' two scale points (PGO by PCG at M=256, BA at M=128,
+    L=4,096); the sampler ablation at the recorded points (16 pairs,
+    N=1,000, K in {128, 512}, 80/90/95% outliers) by both routes; the
+    sharded BA and PGO dry runs on two spawned ranks. Adds rows 1-4's
+    launches in the slam run and in the ablation's kernel-route runs to
+    their rows."""
+    import numpy as np
+    import torch
+
+    from saccot_tpu_torch.dist.local import run_ranks
+    from saccot_tpu_torch.evaluation import ablation as abl
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.slam import dryrun, problems
+    from saccot_tpu_torch.slam import frontend as fe
+    from saccot_tpu_torch.slam.ba import bundle_adjust
+    from saccot_tpu_torch.slam.posegraph import optimize_pose_graph
+    from saccot_tpu_torch.utils.profile import profile_call
+
+    t_phase = time.perf_counter()
+    # (a) The slam configuration, both routes.
+    seq = fe.slam_config_sequence()
+    k, k_ms, slam_launches = slam_route_runs(seq, "kernel", dev)
+    p, p_ms, _ = slam_route_runs(seq, "plain", dev)
+    check(len(seq["edges"]) == 13, f"slam: {len(seq['edges'])} edges, want 13")
+    ates, gap = hold_slam_routes(k, p, seq, "slam")
+    for name, a in ates.items():
+        check(a["registered"] == 13, f"slam: {a['registered']} of 13 edges registered ({name})")
+        check(a["ate"] < fe.SLAM_ATE_BOUND, f"slam: final ATE {a['ate']} ({name})")
+    for name in PATH_ROWS:
+        check(slam_launches[name] > 0, f"{name} was not launched by run_sequence")
+    for r in rows:
+        if r["name"] in PATH_ROWS or r["name"] == "anchor_topb_topt":
+            r["slam_launches"] = slam_launches[r["name"]]
+    again, _, _ = slam_route_runs(seq, "kernel", dev)
+    check(torch.equal(again.poses, k.poses), "slam: a repeat call gave other bits")
+    hold_slam_kernels(seq, dev, rows)
+    print(f"  slam (10 scans, 13 edges, N=512): registered {ates['kernel']['registered']} / "
+          f"{ates['plain']['registered']}; ATE PGO {ates['kernel']['ate_pgo']:.6f} / "
+          f"{ates['plain']['ate_pgo']:.6f}, final {ates['kernel']['ate']:.6f} / "
+          f"{ates['plain']['ate']:.6f} (kernel / plain); routes {gap:.3g} apart; first call "
+          f"{k_ms:.1f} ms (kernels), {p_ms:.1f} ms (plain); BA tracks {k.ba_stats}; launches "
+          f"{slam_launches}", flush=True)
+    prof = profile_call(lambda: slam_route_runs(seq, "kernel", dev),
+                        reps=2, batches=1, ranges=fe.STAGE_PREFIX)
+    stage_lines(prof["ranges"], 1, "slam stage")
+    staged = sum(v["device_ms"] for v in prof["ranges"].values())
+    print(f"  slam: wall {prof['wall_ms_per_batch']:.1f} ms, device busy "
+          f"{prof['device_busy_ms_per_batch']:.3f} ms (the stage ranges hold {staged:.3f}), "
+          f"idle {prof['idle_share']:.4f}, {prof['kernels_per_batch']:g} kernels a run "
+          f"[{time.perf_counter() - t_phase:.1f} s into the phase]", flush=True)
+
+    # (b) 128 scans: PGO above DENSE_PGO_MAX_POSES takes PCG.
+    seq128 = fe.slam_config_sequence(128)
+    k128, k128_ms, _ = slam_route_runs(seq128, "kernel", dev)
+    p128, p128_ms, _ = slam_route_runs(seq128, "plain", dev)
+    ates128, gap128 = hold_slam_routes(k128, p128, seq128, "slam at 128 scans", same_stats=False)
+    _, again128_ms, _ = slam_route_runs(seq128, "kernel", dev)
+    print(f"  slam at 128 scans ({len(seq128['edges'])} edges): registered "
+          f"{ates128['kernel']['registered']} / {ates128['plain']['registered']}; ATE PGO "
+          f"{ates128['kernel']['ate_pgo']:.6f} / {ates128['plain']['ate_pgo']:.6f}, final "
+          f"{ates128['kernel']['ate']:.6f} / {ates128['plain']['ate']:.6f}; routes {gap128:.3g} "
+          f"apart; {k128_ms:.1f} ms (kernels, first call), {p128_ms:.1f} ms (plain), "
+          f"{again128_ms:.1f} ms (kernels, again; host clock) "
+          f"[{time.perf_counter() - t_phase:.1f} s]", flush=True)
+
+    # (c) The JAX tests' scale points, with their bounds.
+    graph, gt = problems.pose_graph_problem(seed=9, M=256, noise=0.02, device=dev)
+    pgo = optimize_pose_graph(graph, iters=12)
+    ate_opt = problems.ate_rmse(pgo.poses.double().cpu().numpy(), gt)
+    ate_init = problems.ate_rmse(graph.poses.double().cpu().numpy(), gt)
+    check(float(pgo.final_cost) < float(pgo.initial_cost), "PGO M=256: cost did not fall")
+    check(ate_opt < 0.5 * ate_init and ate_opt < 0.2,
+          f"PGO M=256: ATE {ate_opt} (odometry {ate_init})")
+    prob, gtp, _ = problems.ba_problem(seed=8, M=128, L=4096, G=4, noise=0.005, init_noise=0.03,
+                                       device=dev)
+    ba = bundle_adjust(prob, iters=6, cg_iters=96)
+    ate_ba = problems.ate_rmse(ba.poses.double().cpu().numpy(), gtp)
+    check(float(ba.final_cost) < 0.2 * float(ba.initial_cost),
+          f"BA M=128: cost {float(ba.initial_cost)} -> {float(ba.final_cost)}")
+    check(ate_ba < 0.05, f"BA M=128: ATE {ate_ba}")
+    # Each solve timed whole on the host clock; its first Gauss-Newton step
+    # profiled (a whole solve is 6,000-61,000 launches, which the profiler
+    # takes tens of seconds to read).
+    scale = {}
+    for key, full, step in (
+            ("pgo_256", lambda: optimize_pose_graph(graph, iters=12),
+             lambda: optimize_pose_graph(graph, iters=1)),
+            ("ba_128", lambda: bundle_adjust(prob, iters=6, cg_iters=96),
+             lambda: bundle_adjust(prob, iters=1, cg_iters=96))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full()
+        torch.cuda.synchronize()
+        scale[key] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                          first_step=profile_call(step, reps=2, batches=1))
+        st = scale[key]["first_step"]
+        print(f"  {key}: {scale[key]['wall_ms']:.1f} ms a solve (host clock); its first step "
+              f"wall {st['wall_ms_per_batch']:.1f} ms, busy "
+              f"{st['device_busy_ms_per_batch']:.3f} ms, idle {st['idle_share']:.4f}, "
+              f"{st['kernels_per_batch']:g} kernels", flush=True)
+    print(f"  scale points: PGO ATE {ate_opt:.5f} (odometry {ate_init:.5f}), BA ATE {ate_ba:.5f}, "
+          f"cost {float(ba.initial_cost):.4f} -> {float(ba.final_cost):.4f} "
+          f"[{time.perf_counter() - t_phase:.1f} s]", flush=True)
+
+    # (d) The sampler ablation at the recorded points, both routes.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    sweeps = {}
+    for K in abl.ABLATION_BUDGETS:
+        params = dataclasses.replace(abl.OBJ_PARAMS, max_hypotheses=K)
+        sweeps[K, "kernel"] = abl.run_sampler_ablation(
+            params, abl.ABLATION_RATIOS, n_pairs=abl.ABLATION_PAIRS, n_corr=1000, seed=0,
+            impl="kernel", device=dev)
+    torch.cuda.synchronize()
+    abl_launches = _build.launches()
+    for K in abl.ABLATION_BUDGETS:
+        params = dataclasses.replace(abl.OBJ_PARAMS, max_hypotheses=K)
+        sweeps[K, "plain"] = abl.run_sampler_ablation(
+            params, abl.ABLATION_RATIOS, n_pairs=abl.ABLATION_PAIRS, n_corr=1000, seed=0,
+            impl="plain", device=dev)
+    for name in PATH_ROWS:
+        check(abl_launches[name] > 0, f"{name} was not launched by the ablation")
+    hold_ablation_kernels(dev, rows)
+    for r in rows:
+        if r["name"] in PATH_ROWS or r["name"] == "anchor_topb_topt":
+            r["ablation_launches"] = abl_launches[r["name"]]
+    cells = {}
+    for K in abl.ABLATION_BUDGETS:
+        rk, rp = sweeps[K, "kernel"]["recall"], sweeps[K, "plain"]["recall"]
+        for ratio in abl.ABLATION_RATIOS:
+            check(rk["saccot"][ratio] >= rk["edge"][ratio] >= rk["random"][ratio],
+                  f"ablation K={K} {ratio}: recall {rk}")
+            check(rk["saccot"][ratio] == rp["saccot"][ratio],
+                  f"ablation K={K} {ratio}: saccot recall differs by route")
+            for s in ("edge", "random"):
+                check(abs(rk[s][ratio] - rp[s][ratio]) <= 1 / abl.ABLATION_PAIRS + 1e-9,
+                      f"ablation K={K} {ratio}: {s} recall {rk[s][ratio]} vs {rp[s][ratio]}")
+        for route in ("kernel", "plain"):
+            print(f"  ablation ({route} route):\n    " +
+                  abl.format_table(sweeps[K, route]).replace("\n", "\n    "), flush=True)
+            print(f"    ms a cell: " + ", ".join(
+                f"{s} " + "/".join(f"{1e3 * v:.1f}" for v in row.values())
+                for s, row in sweeps[K, route]["secs"].items()), flush=True)
+        cells[K] = {route: dict(recall=sweeps[K, route]["recall"],
+                                ms={s: {str(r): 1e3 * v for r, v in row.items()}
+                                    for s, row in sweeps[K, route]["secs"].items()})
+                    for route in ("kernel", "plain")}
+    print(f"  ablation launches (kernel route, both budgets): {abl_launches} "
+          f"[{time.perf_counter() - t_phase:.1f} s]", flush=True)
+
+    # (e) The sharded dry runs on two spawned ranks.
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    ranks = run_ranks(dryrun.dryrun_rank, 2, backend, dev.type, timeout=300)
+    for r in ranks:
+        for name in ("ba", "pgo"):
+            d = r[name]
+            check(float(d.final_cost) <= float(d.initial_cost) + 1e-9, f"dryrun {name}: cost rose")
+            apart = float(np.abs(d.poses - r[f"{name}_one"].poses).max())
+            check(apart < 2e-4, f"dryrun {name}: sharded poses {apart} from one rank")
+    print(f"  dry runs on 2 ranks ({backend}): BA cost {float(ranks[0]['ba'].initial_cost):.4f} -> "
+          f"{float(ranks[0]['ba'].final_cost):.4f}, PGO {float(ranks[0]['pgo'].initial_cost):.4f}"
+          f" -> {float(ranks[0]['pgo'].final_cost):.4f}, sharded = one rank within 2e-4: ok",
+          flush=True)
+    print(json.dumps({"slam": dict(
+        config=dict(ate_pgo=ates["kernel"]["ate_pgo"], ate=ates["kernel"]["ate"],
+                    plain_ate=ates["plain"]["ate"], route_gap=gap, first_call_ms=k_ms,
+                    plain_first_call_ms=p_ms, wall_ms=prof["wall_ms_per_batch"],
+                    device_busy_ms=prof["device_busy_ms_per_batch"],
+                    idle_share=prof["idle_share"], kernels=prof["kernels_per_batch"],
+                    stage_ms=prof["ranges"], own_kernels_ms=prof["own_kernels_ms_per_batch"],
+                    top_kernels=prof["top_kernels"], launches=slam_launches,
+                    ba_stats=k.ba_stats),
+        scans128=dict(edges=len(seq128["edges"]), ate_pgo=ates128["kernel"]["ate_pgo"],
+                      ate=ates128["kernel"]["ate"], plain_ate=ates128["plain"]["ate"],
+                      route_gap=gap128, first_call_ms=k128_ms, plain_ms=p128_ms,
+                      wall_ms=again128_ms),
+        pgo_256=dict(ate=ate_opt, **scale["pgo_256"]),
+        ba_128=dict(ate=ate_ba, **scale["ba_128"]),
+        ablation=cells, ablation_launches=abl_launches)}), flush=True)
+    print(f"phase 12 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 def gloo_cuda_probe(dev):
     """Which collectives a gloo group runs on CUDA tensors itself (True) or
@@ -1264,6 +1575,9 @@ def main():
 
     # -- phase 11: the cloud pipeline at the bunny configuration -----------
     phase11(dev, rows)
+
+    # -- phase 12: sequence SLAM and the sampler ablation ------------------
+    phase12(dev, rows)
 
     for r in rows:
         r["device_over_floor"] = r["device_ms"] / floor

@@ -1,12 +1,14 @@
 """Synthetic problems (the port's own copy of `blob_cloud`,
-`correspondence_problem` and `two_view_pair` from
+`correspondence_problem`, `two_view_pair` and `slam_sequence` from
 `saccot_tpu/io/synthetic.py`).
 
 A smooth closed surface (a spherical-harmonic-deformed sphere), a planted
 rigid transform, correspondence sets with a controlled outlier fraction,
-and two partially overlapping noisy views of one surface for the
-cloud-to-transform pipeline. Deterministic given the seed: the same seed
-gives the JAX package's arrays bit for bit (`tests/test_torch_isolation.py`).
+two partially overlapping noisy views of one surface for the
+cloud-to-transform pipeline, and a scan sequence with its per-edge
+correspondence sets for sequence SLAM. Deterministic given the seed: the
+same seed gives the JAX package's arrays bit for bit
+(`tests/test_torch_isolation.py`).
 """
 
 from __future__ import annotations
@@ -107,4 +109,67 @@ def two_view_pair(
         source=src_noisy.astype(np.float32),
         target=tgt.astype(np.float32),
         T_gt=T_gt,
+    )
+
+
+def slam_sequence(
+    seed: int = 0,
+    n_scans: int = 8,
+    n_corr: int = 256,
+    outlier_ratio: float = 0.4,
+    noise: float = 0.004,
+    loop_every: int = 0,
+    n_world: int = 8192,
+    step_angle: float = 0.25,
+    step_trans: float = 0.4,
+) -> Dict[str, np.ndarray]:
+    """Synthetic multi-scan SLAM problem (BASELINE.json configs[4]).
+
+    A world surface is observed from a chain of poses T_i (world <- scan).
+    For every edge (consecutive pairs plus optional loop closures) a
+    correspondence problem is emitted in the two scans' local frames with a
+    planted outlier fraction — exactly what the pairwise SAC-COT front end
+    consumes. Ground-truth poses are returned for ATE evaluation.
+
+    Returns dict with:
+      poses_gt [M, 4, 4]; edges [E, 2] int; edge_P/edge_Q [E, n_corr, 3]
+      (P in frame i, Q in frame j); edge_is_loop [E] bool.
+    """
+    rng = np.random.default_rng(seed)
+    world = blob_cloud(rng, n_world, deform=0.3) * 4.0  # scene-scale blob
+
+    poses = [np.eye(4)]
+    for _ in range(n_scans - 1):
+        poses.append(poses[-1] @ se3np.random_transform(
+            rng, max_angle_rad=step_angle, max_trans=step_trans))
+    poses_gt = np.stack(poses)
+
+    edges = [(i, i + 1) for i in range(n_scans - 1)]
+    if loop_every and n_scans > loop_every:
+        edges += [(i, i + loop_every) for i in range(0, n_scans - loop_every, loop_every)]
+        edges.append((0, n_scans - 1))
+
+    edge_P, edge_Q, is_loop = [], [], []
+    for (i, j) in edges:
+        sel = rng.choice(n_world, size=n_corr, replace=False)
+        pts_w = world[sel]
+        p_i = se3np.apply_T(np.linalg.inv(poses_gt[i]), pts_w)
+        p_j = se3np.apply_T(np.linalg.inv(poses_gt[j]), pts_w)
+        p_i = p_i + rng.normal(scale=noise, size=p_i.shape)
+        p_j = p_j + rng.normal(scale=noise, size=p_j.shape)
+        n_out = int(round(n_corr * outlier_ratio))
+        out_idx = rng.choice(n_corr, size=n_out, replace=False)
+        wrong_w = world[rng.choice(n_world, size=n_out)]
+        p_j[out_idx] = se3np.apply_T(np.linalg.inv(poses_gt[j]), wrong_w)
+        edge_P.append(p_i.astype(np.float32))
+        edge_Q.append(p_j.astype(np.float32))
+        is_loop.append(abs(i - j) > 1)
+
+    return dict(
+        poses_gt=poses_gt,
+        edges=np.asarray(edges, np.int32),
+        edge_P=np.stack(edge_P),
+        edge_Q=np.stack(edge_Q),
+        edge_is_loop=np.asarray(is_loop),
+        world=world.astype(np.float32),
     )

@@ -35,3 +35,10 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`a @ b` (batched over leading dims) in full FP32."""
     with full_fp32():
         return a @ b
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` in full FP32 (the JAX package's `_es`, an einsum at
+    `Precision.HIGHEST`)."""
+    with full_fp32():
+        return torch.einsum(eq, *operands)

@@ -1,5 +1,6 @@
-"""NumPy SE(3) helpers of the synthetic problems and the metrics (the port's
-own copy of the part of `saccot_tpu/utils/se3np.py` they use)."""
+"""NumPy SE(3) helpers of the synthetic problems, the metrics and the SLAM
+dry runs (the port's own copy of the part of `saccot_tpu/utils/se3np.py`
+they use)."""
 
 from __future__ import annotations
 
@@ -30,12 +31,57 @@ def exp_so3(w: np.ndarray) -> np.ndarray:
     return I + A * W + B * (W @ W)
 
 
+def log_so3(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> axis-angle vector (batched)."""
+    R = np.asarray(R, dtype=np.float64)
+    tr = np.trace(R, axis1=-2, axis2=-1)
+    cos = np.clip((tr - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(cos)[..., None]
+    v = np.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        axis=-1,
+    )
+    small = th < 1e-7
+    th_safe = np.where(small, 1.0, th)
+    scale = np.where(small, 0.5 + th**2 / 12.0, th / (2.0 * np.sin(th_safe)))
+    # Near pi the v-based formula degrades; acceptable for test/gen usage where
+    # angles are sampled away from pi. SLAM code uses its own robust log.
+    return scale * v
+
+
+def exp_se3(xi: np.ndarray) -> np.ndarray:
+    """se(3) twist (v, w) -> 4x4 transform. xi[...,:3]=translation part, xi[...,3:]=rotation."""
+    xi = np.asarray(xi, dtype=np.float64)
+    v, w = xi[..., :3], xi[..., 3:]
+    R = exp_so3(w)
+    th = np.linalg.norm(w, axis=-1, keepdims=True)[..., None]
+    W = hat(w)
+    I = np.broadcast_to(np.eye(3), W.shape)
+    small = th < 1e-8
+    th_safe = np.where(small, 1.0, th)
+    B = np.where(small, 0.5 - th**2 / 24.0, (1.0 - np.cos(th_safe)) / th_safe**2)
+    C = np.where(small, 1.0 / 6.0 - th**2 / 120.0, (th_safe - np.sin(th_safe)) / th_safe**3)
+    V = I + B * W + C * (W @ W)
+    T = np.zeros(xi.shape[:-1] + (4, 4), dtype=np.float64)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = np.einsum("...ij,...j->...i", V, v)
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def make_T(R: np.ndarray, t: np.ndarray) -> np.ndarray:
     T = np.zeros(R.shape[:-2] + (4, 4), dtype=np.float64)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def inv_T(T: np.ndarray) -> np.ndarray:
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Rt = np.swapaxes(R, -1, -2)
+    return make_T(Rt, -np.einsum("...ij,...j->...i", Rt, t))
 
 
 def apply_T(T: np.ndarray, pts: np.ndarray) -> np.ndarray:

@@ -147,3 +147,96 @@ def test_bunny_configuration_matches_the_jax_package():
         np.testing.assert_array_equal(src[b].numpy(), pair["source"])
         np.testing.assert_array_equal(tgt[b].numpy(), pair["target"])
         np.testing.assert_array_equal(T_gt[b], pair["T_gt"])
+
+
+def test_slam_copies_match_the_jax_package():
+    """The copies of this slice: `log_so3`, `exp_se3`, `inv_T`, `ate`,
+    `relative_pose_error`, `slam_sequence` and `propose_loop_candidates`
+    are the originals character for character and give their arrays; the
+    host-side `correspondences_to_ba` gives the original's arrays and
+    stats."""
+    import inspect
+
+    from saccot_tpu.slam import frontend as jfrontend
+    from saccot_tpu_torch.slam import frontend as tfrontend
+    from saccot_tpu_torch.utils import se3np as tse3np
+
+    for j, t in ((jse3np.log_so3, tse3np.log_so3), (jse3np.exp_se3, tse3np.exp_se3),
+                 (jse3np.inv_T, tse3np.inv_T), (jmetrics.ate, tmetrics.ate),
+                 (jmetrics.relative_pose_error, tmetrics.relative_pose_error),
+                 (jsynthetic.slam_sequence, tsynthetic.slam_sequence),
+                 (jfrontend.propose_loop_candidates, tfrontend.propose_loop_candidates)):
+        assert inspect.getsource(j) == inspect.getsource(t), j.__name__
+    rng = np.random.default_rng(4)
+    xi = rng.normal(scale=0.6, size=(20, 6))
+    np.testing.assert_array_equal(tse3np.exp_se3(xi), jse3np.exp_se3(xi))
+    T = jse3np.exp_se3(xi)
+    np.testing.assert_array_equal(tse3np.inv_T(T), jse3np.inv_T(T))
+    np.testing.assert_array_equal(tse3np.log_so3(T[:, :3, :3]), jse3np.log_so3(T[:, :3, :3]))
+    for seed in range(3):
+        for kw in ({}, dict(n_scans=7, n_corr=64, loop_every=3, n_world=900, noise=0.002)):
+            a = jsynthetic.slam_sequence(seed=seed, **kw)
+            b = tsynthetic.slam_sequence(seed=seed, **kw)
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+                assert a[k].dtype == b[k].dtype
+    seq = jsynthetic.slam_sequence(seed=1, n_scans=9, n_corr=48, loop_every=3, n_world=600)
+    est = seq["poses_gt"] @ jse3np.exp_se3(rng.normal(scale=0.02, size=(9, 6)))
+    assert tmetrics.ate(est, seq["poses_gt"]) == jmetrics.ate(est, seq["poses_gt"])
+    assert tmetrics.ate(est, seq["poses_gt"], align=False) == \
+        jmetrics.ate(est, seq["poses_gt"], align=False)
+    assert tmetrics.relative_pose_error(est, seq["poses_gt"], 2) == \
+        jmetrics.relative_pose_error(est, seq["poses_gt"], 2)
+    np.testing.assert_array_equal(
+        tfrontend.propose_loop_candidates(est, min_gap=2, radius=2.0),
+        jfrontend.propose_loop_candidates(est, min_gap=2, radius=2.0))
+    inl = rng.uniform(size=seq["edge_P"].shape[:2]) < 0.6
+    for mode, L, G in (("tracks", 256, 4), ("pairwise", 64, 2)):
+        args = (est.astype(np.float32), seq["edges"], seq["edge_P"], seq["edge_Q"], inl)
+        kw = dict(max_landmarks=L, obs_per_landmark=G, merge_cell=0.2, mode=mode)
+        ref, ref_stats = jfrontend.correspondences_to_ba(*args, **kw)
+        got, stats = tfrontend.correspondences_to_ba(*args, device="cpu", **kw)
+        assert stats == ref_stats
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_slam_and_ablation_configurations_match_the_jax_package():
+    """The restated slam configuration (`slam/frontend.py`) and the
+    ablation's estimator parameters (`evaluation/ablation.py`) equal
+    `cli/configs.py`'s "slam" and `_OBJ_PARAMS`; `run_sequence` and
+    `run_sampler_ablation` keep the JAX package's defaults."""
+    import inspect
+
+    from saccot_tpu.cli.configs import _OBJ_PARAMS
+    from saccot_tpu.evaluation import ablation as jablation
+    from saccot_tpu.slam import frontend as jfrontend
+    from saccot_tpu_torch.evaluation import ablation as tablation
+    from saccot_tpu_torch.slam import frontend as tfrontend
+
+    cfg = CONFIGS["slam"]
+    assert (tfrontend.SLAM_SEED, tfrontend.SLAM_SCANS, tfrontend.SLAM_CORR,
+            tfrontend.SLAM_OUTLIERS, tfrontend.SLAM_NOISE, tfrontend.SLAM_LOOP_EVERY) == \
+        (cfg.seed, cfg.n_scans, cfg.n_corr, cfg.outlier_ratio, cfg.noise, cfg.loop_every)
+    assert dataclasses.asdict(tfrontend.SLAM_PARAMS) == dataclasses.asdict(cfg.params)
+    assert dataclasses.asdict(tablation.OBJ_PARAMS) == dataclasses.asdict(_OBJ_PARAMS)
+    a = tfrontend.slam_config_sequence()
+    b = jsynthetic.slam_sequence(seed=cfg.seed, n_scans=cfg.n_scans, n_corr=cfg.n_corr,
+                                 outlier_ratio=cfg.outlier_ratio, noise=cfg.noise,
+                                 loop_every=cfg.loop_every)
+    assert a.keys() == b.keys() and len(a["edges"]) == 13
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    for j, t, port_only in ((jfrontend.run_sequence, tfrontend.run_sequence, {"impl", "device"}),
+                            (jablation.run_sampler_ablation, tablation.run_sampler_ablation,
+                             {"device"})):
+        dj, dt = defaults(j), defaults(t)
+        assert set(dt) - set(dj) == port_only
+        assert {k: dt[k] for k in dj if k != "impl"} == {k: v for k, v in dj.items()
+                                                          if k != "impl"}
