@@ -102,7 +102,25 @@ Phases (any failure exits non-zero before the result lines are printed):
      edge >= random on the kernel route, saccot equal by route, edge and
      random within 1/16, rows 1-4's launches counted; the sharded BA and PGO
      dry runs on two spawned ranks, each within 2e-4 of one rank; one
-     {"slam": {...}} line of the readings.
+     {"slam": {...}} line of the readings;
+ 13. the command line (`python -m saccot_tpu_torch.cli.main`), its `main`
+     run in this process once per mode, each JSON line checked, each run's
+     launches counted alone and its wall time printed with the card's name
+     and power limit: the five run configurations at their own sizes (bunny
+     recall 1.0; u3m 45 pairs, at least 33 eligible pairs registered;
+     threedmatch in shards of 16, T bit for bit phase 5's; kitti through
+     `register_pair`, every stage before the refine bit for bit phase 7's
+     batch of 2 and T within 1e-5 (the refine's torch sums over N=50,000
+     add in an order set by the batch); slam 13 of 13 edges, ATE equal to
+     phase 12's), files (two PLY views of 8,192 points), sequence --loops
+     (8 KITTI scans of 30,000 points on a closed circle: a loop closure,
+     the optimised ATE at most 1.2 x the raw one), external (8 fragments of
+     5,000 keypoints, recall 1.0, --out-log read back), ablate (16 pairs:
+     saccot >= edge >= random), the threedmatch sweep killed after shard 0
+     in a child process (exit 17) and resumed to the uninterrupted run's
+     recall and bits, `measure_scaling` at size 1; rows 1-4 held to their
+     plain versions on the u3m and external inputs; one {"cli": {...}}
+     line of the metrics.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
 (`bound_ms`, from the attribution script), and its device ms over the
@@ -111,6 +129,7 @@ JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -635,7 +654,8 @@ def phase12(dev, rows):
     N=1,000, K in {128, 512}, 80/90/95% outliers) by both routes; the
     sharded BA and PGO dry runs on two spawned ranks. Adds rows 1-4's
     launches in the slam run and in the ablation's kernel-route runs to
-    their rows."""
+    their rows. Returns the kernel route's final ATE at the slam
+    configuration."""
     import numpy as np
     import torch
 
@@ -811,6 +831,350 @@ def phase12(dev, rows):
         ba_128=dict(ate=ate_ba, **scale["ba_128"]),
         ablation=cells, ablation_launches=abl_launches)}), flush=True)
     print(f"phase 12 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return ates["kernel"]["ate"]
+
+# -- phase 13: the command line ------------------------------------------------
+
+def write_ply(path, pts):
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(pts)}\n"
+              "property float x\nproperty float y\nproperty float z\nend_header\n")
+    path.write_bytes(header.encode() + pts.astype("<f4").tobytes())
+
+
+def write_files_pair(root):
+    """Two PLY views of `two_view_pair(seed=41, n_points=8192, overlap=0.85,
+    noise=0.002)` and their 4x4 ground truth as text: the files mode's
+    arguments."""
+    import numpy as np
+
+    from saccot_tpu_torch.io.synthetic import two_view_pair
+
+    pair = two_view_pair(seed=41, n_points=8192, overlap=0.85, noise=0.002)
+    write_ply(root / "src.ply", pair["source"])
+    write_ply(root / "tgt.ply", pair["target"])
+    np.savetxt(root / "gt.txt", pair["T_gt"])
+    return ["--src", str(root / "src.ply"), "--tgt", str(root / "tgt.ply"),
+            "--gt", str(root / "gt.txt")]
+
+
+def write_sequence_scans(root, n_scans=8, n_points=30000, seed=23):
+    """KITTI .bin scans of one scene-scale surface (a deformed sphere of
+    radius ~5 m, `n_points` points a scan, 5 mm noise) seen from `n_scans`
+    poses on a closed circle of radius 0.6 m (the last position is the
+    first), and their poses.txt: the sequence mode's arguments at its
+    defaults (0.25 m scale, 65,536-point buckets)."""
+    import numpy as np
+
+    from saccot_tpu_torch.io.synthetic import blob_cloud
+    from saccot_tpu_torch.utils import se3np
+
+    rng = np.random.default_rng(seed)
+    world = blob_cloud(rng, n_points, order=8, deform=0.6) * 5.0
+    poses = []
+    for a in np.linspace(0, 2 * np.pi, n_scans):
+        T = np.eye(4)
+        T[:3, :3] = se3np.exp_so3(np.array([0.0, 0.0, a * 0.05]))
+        T[0, 3] = np.cos(a) * 0.6 - 0.6
+        T[1, 3] = np.sin(a) * 0.6
+        poses.append(T)
+    for i, pose in enumerate(poses):
+        scan = se3np.apply_T(np.linalg.inv(pose), world)
+        scan = scan + rng.normal(scale=0.005, size=scan.shape)
+        raw = np.concatenate([scan, np.zeros((len(scan), 1))], axis=1)
+        raw.astype("<f4").tofile(root / f"{i:06d}.bin")
+    np.savetxt(root / "poses.txt", np.stack([p[:3, :].reshape(-1) for p in poses]))
+    return ["--dir", str(root), "--poses", str(root / "poses.txt")]
+
+
+def write_external_scene(root, n_frag=8, n_world=8000, n_keep=5000, dim=32, seed=5):
+    """tests/test_cli_external.py's scene at 8 fragments of 5,000 keypoints:
+    world points with persistent random 32-D descriptors, each fragment a
+    posed noisy subset, gt.log the exact relative poses (consecutive pairs
+    and (0, 7)) in the Redwood/3DMatch convention. The external mode's
+    arguments."""
+    import numpy as np
+
+    from saccot_tpu_torch.io.external import save_descriptors_npz
+    from saccot_tpu_torch.utils import se3np
+
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(-1.5, 1.5, size=(n_world, 3)).astype(np.float32)
+    D = rng.normal(size=(n_world, dim)).astype(np.float32)
+    frag_dir = root / "fragments"
+    frag_dir.mkdir()
+    poses = []
+    for k in range(n_frag):
+        T = se3np.random_transform(rng, max_angle_rad=0.8, max_trans=0.5)
+        poses.append(T)
+        idx = np.sort(rng.choice(n_world, size=n_keep, replace=False))
+        x = se3np.apply_T(se3np.inv_T(T), W[idx]).astype(np.float32)
+        x += rng.normal(scale=0.003, size=x.shape).astype(np.float32)
+        d = (D[idx] + rng.normal(scale=0.05, size=(n_keep, dim))).astype(np.float32)
+        save_descriptors_npz(str(frag_dir / f"cloud_bin_{k}.npz"), x, d)
+    pairs = [(i, i + 1) for i in range(n_frag - 1)] + [(0, n_frag - 1)]
+    with open(root / "gt.log", "w") as f:
+        for (i, j) in pairs:
+            T_ij = se3np.inv_T(poses[i]) @ poses[j]
+            f.write(f"{i} {j} {n_frag}\n")
+            for r in range(4):
+                f.write(" ".join(f"{v:.9f}" for v in T_ij[r]) + "\n")
+    return ["--dir", str(frag_dir), "--gt-log", str(root / "gt.log")]
+
+
+class Recorded:
+    """Wrap `module.name` while the block runs; keep(args, kwargs, result)
+    of every call in `calls`."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep, self.calls = module, name, keep, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def rec(*a, **k):
+            out = self.orig(*a, **k)
+            self.calls.append(self.keep(a, k, out))
+            return out
+
+        setattr(self.module, self.name, rec)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def batch_stages(P, Q, params):
+    """`register_batch` on the batch and on each pair alone, each stage's
+    outputs recorded (degrees, pool, solve, scores, the refine's `umeyama`
+    and inlier masks): for every stage but the refine, whether each pair's
+    slice has the same bits alone as in the batch; the refine's largest
+    difference."""
+    import torch
+
+    from saccot_tpu_torch import register_batch
+    from saccot_tpu_torch.engine import sac_cot, score as score_mod, triangles as tri_mod
+    from saccot_tpu_torch.kernels import compat, score, solve3
+
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else [t for y in x for t in flat(y)]
+
+    keep = lambda a, k, out: flat(out)
+    stages = ((compat, "degrees"), (tri_mod, "triangle_pool_from_points"),
+              (solve3, "solve3"), (score, "score_hypotheses"), (sac_cot, "umeyama"),
+              (score_mod, "inlier_mask"))
+    same, refine_diff = {}, 0.0
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(Recorded(mod, name, keep)) for mod, name in stages}
+        register_batch(P, Q, params)
+        whole = {name: list(c) for name, c in calls.items()}
+        for b in range(P.shape[0]):
+            for c in calls.values():
+                c.clear()
+            register_batch(P[b:b + 1], Q[b:b + 1], params)
+            for name, c in calls.items():
+                for got, want in zip(c, whole[name]):
+                    for x, y in zip(got, want):
+                        if name == "umeyama":
+                            refine_diff = max(refine_diff, (x[0] - y[b]).abs().max().item())
+                        else:
+                            same[name] = same.get(name, True) and torch.equal(x[0], y[b])
+    return same, refine_diff
+
+
+# The kernels each command-line run must launch: rows 1-4 (the estimator at
+# N <= 2048, row 2 in its candidates mode), at kitti rows 5, 6, 8 and 4.
+KITTI_ROWS = ("compat_degrees_tri", "anchor_topb_stream", "solve3", "score")
+
+
+def phase13(dev, rows, ref, card):
+    """The command line: the port's `main` in this process, once per mode,
+    each JSON line parsed and checked. The five run configurations at their
+    own sizes (bunny 4 pairs x 8,192 points; u3m 10 views, 45 pairs;
+    threedmatch 32 pairs x 2,048 in shards of 16, T bit for bit phase 5's;
+    kitti 2 pairs x 50,000, each stage before the refine bit for bit phase
+    7's, T within 1e-5 (`batch_stages`); slam 10 scans, 13
+    edges, ATE equal to phase 12's); files (two PLY views of 8,192 points
+    with --gt), sequence --loops (8 KITTI scans of 30,000 points on a closed
+    circle), external (8 fragments of 5,000 keypoints, --out-log read
+    back), ablate --pairs 16; the threedmatch sweep killed after shard 0 in
+    a child process (exit 17) and resumed here; `measure_scaling` at size 1.
+    Rows 1-4 held to their plain versions on the u3m and the external
+    inputs (`cli_max_abs_err`). Each run counted on its own
+    (`cli_launches` on the rows); its wall time printed with the card."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from saccot_tpu_torch.cli import external, runners
+    from saccot_tpu_torch.cli.configs import CONFIGS
+    from saccot_tpu_torch.cli.main import main as cli_main
+    from saccot_tpu_torch.evaluation.scaling import measure_scaling
+    from saccot_tpu_torch.features import pipeline as fp
+    from saccot_tpu_torch.io.loaders import load_gt_log
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    scratch = root / "build" / "chip_smoke_cli"
+    scratch.mkdir(parents=True, exist_ok=True)
+    launches, out = {}, {}
+
+    def run(key, args, expect=PATH_ROWS):
+        """One `main` call, counted alone; its JSON line."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[key] = _build.launches()
+        check(rc == 0, f"cli {key}: exit code {rc}")
+        for name in expect:
+            check(launches[key][name] > 0, f"cli {key}: {name} was not launched")
+        m = json.loads(buf.getvalue().strip().splitlines()[-1])
+        out[key] = dict(m, command_s=wall)
+        times = {k: m[k] for k in ("mean_wall_s", "pairs_per_sec", "wall_s", "total_wall_s")
+                 if m.get(k) is not None}
+        print(f"  cli {key}: {times}, {wall:.3f} s the command ({card})", flush=True)
+        return m
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        m = run("bunny", ["bunny"])
+        check(m["pairs"] == 4 and m["recall"] == 1.0, f"cli bunny: {m}")
+
+        keep_sets = lambda a, k, res: tuple(x for x in (
+            fp.pr_units(res.corr_P[None], res.resolution[None])[0],
+            fp.pr_units(res.corr_Q[None], res.resolution[None])[0], res.corr_mask))
+        with Recorded(runners, "register_scan_features", keep_sets) as u3m_sets:
+            m = run("u3m", ["u3m"])
+        hits = round(m["recall"] * m["eligible_pairs"])
+        print(f"  cli u3m: {m['views']} views, {m['pairs']} pairs; {hits} of the "
+              f"{m['eligible_pairs']} pairs with overlap >= {m['overlap_threshold']} registered "
+              f"(recall {m['recall']:.4f}), all pairs {m['recall_all_pairs']:.4f}; by overlap "
+              f"band {m['recall_by_overlap_band']} of {m['pairs_by_overlap_band']} pairs",
+              flush=True)
+        check(m["pairs"] == 45 and hits >= 33, f"cli u3m: {hits} eligible pairs registered")
+        P, Q, M = (torch.stack(x) for x in zip(*u3m_sets))
+        hold_path_kernels(P, Q, fp.estimator_params(CONFIGS["u3m"].pipeline),
+                          "the u3m sweep's 45 pairs", "cli", rows, mask=M)
+
+        ck = tmp / "whole"
+        m = run("threedmatch", ["threedmatch", "--ckpt", str(ck)])
+        T_tdm = SweepCheckpointer(str(ck)).merged()["T"][:32].astype(np.float32)
+        same = np.array_equal(T_tdm, ref["threedmatch_T"])
+        print(f"  cli threedmatch: recall {m['recall']:.4f} (phase 5 {ref['threedmatch_recall']:.4f}); "
+              f"T of the 32 pairs in shards of 16 bit for bit phase 5's batch of 32: {same}",
+              flush=True)
+        check(same, "cli threedmatch: T differs from phase 5's")
+        check(m["recall"] == ref["threedmatch_recall"], f"cli threedmatch: recall {m['recall']}")
+
+        with Recorded(runners, "registration_error", lambda a, k, r: np.asarray(a[0])) as kT:
+            m = run("kitti", ["kitti"], expect=KITTI_ROWS)
+        T_gap = float(np.abs(np.stack(kT).astype(np.float32) - ref["kitti_T"]).max())
+        # register_pair (a batch of one) against phase 7's batch of two: every
+        # kernel, the pool and the inlier masks give the same bits; the
+        # refine's torch sums over N=50,000 rows (`umeyama`) add in another
+        # order for one row than for two, so T may move by float32 ulps.
+        same, refine_diff = batch_stages(ref["kitti_P"], ref["kitti_Q"], ref["kitti_params"])
+        print(f"  cli kitti: recall {m['recall']:.4f}, {m['n_corr']} correspondences a pair; "
+              f"register_pair's T within {T_gap:.3g} of phase 7's batch of 2; alone vs in the "
+              f"batch, same bits: {same}, the refine's umeyama within {refine_diff:.3g}",
+              flush=True)
+        check(m["pairs"] == 2 and m["recall"] == 1.0, f"cli kitti: {m}")
+        check(all(same.values()) and len(same) == 5,
+              f"cli kitti: a stage before the refine depends on the batch: {same}")
+        check(T_gap <= 1e-5, f"cli kitti: T {T_gap} from phase 7's")
+
+        m = run("slam", ["slam"])
+        print(f"  cli slam: {m['edges_registered']} of {m['edges']} edges registered, ATE "
+              f"{m['ate_rmse']!r} (phase 12 {ref['slam_ate']!r}), after PGO "
+              f"{m['ate_rmse_pgo']!r}", flush=True)
+        check(m["edges"] == 13 and m["edges_registered"] == 13, f"cli slam: {m}")
+        check(m["ate_rmse"] == ref["slam_ate"], "cli slam: ATE differs from phase 12's")
+
+        m = run("files", ["files"] + write_files_pair(tmp))
+        check(m["success"] and m["rot_err_deg"] < 5.0, f"cli files: {m}")
+        print(f"  cli files: bucket {m['bucket']}, {m['num_correspondences']} correspondences, "
+              f"{m['num_inliers']} inliers, rotation error {m['rot_err_deg']:.4f} deg, "
+              f"translation error {m['trans_err']:.5f}", flush=True)
+
+        seq_dir = tmp / "scans"
+        seq_dir.mkdir()
+        m = run("sequence --loops", ["sequence", "--loops"] + write_sequence_scans(seq_dir))
+        print(f"  cli sequence: {m['scans']} scans, native prefetch {m['native_prefetch']}, "
+              f"mean inliers {m['mean_inliers']:.1f}, {m['loop_closures']} of "
+              f"{m['loop_candidates']} loop candidates confirmed, ATE {m['ate_rmse']:.6f} -> "
+              f"{m['ate_rmse_optimized']:.6f} optimized", flush=True)
+        check(m["scans"] == 8 and m["pairs"] == 7, f"cli sequence: {m}")
+        check(m["loop_closures"] >= 1, f"cli sequence: no loop closure ({m})")
+        check(m["ate_rmse_optimized"] <= m["ate_rmse"] * 1.2 + 1e-4, f"cli sequence: {m}")
+
+        ext_args = write_external_scene(tmp)
+        keep_batch = lambda a, k, res: (a[0], a[1], k["mask"], a[2])
+        est = tmp / "est.log"
+        with Recorded(external, "register_batch", keep_batch) as ext_sets:
+            m = run("external", ["external", "--out-log", str(est)] + ext_args)
+        back, gt = load_gt_log(str(est)), load_gt_log(ext_args[-1])
+        print(f"  cli external: {m['n_pairs']} pairs of {m['n_fragments']} fragments, bucket "
+              f"{m['bucket']}, recall {m['recall']:.4f}, mean inliers {m['mean_inliers']:.1f}, "
+              f"first batch {m['compile_s']:.3f} s; --out-log read back: {len(back)} pairs",
+              flush=True)
+        check(m["recall"] == 1.0 and m["n_pairs"] == 8, f"cli external: {m}")
+        check(set(back) == set(gt), "cli external: --out-log lists other pairs than gt.log")
+        P, Q, M, params = ext_sets[-1]
+        hold_path_kernels(P, Q, params, "the external mode's 8 pairs", "cli", rows, mask=M)
+
+        m = run("ablate", ["ablate", "--pairs", "16"])
+        for ratio in ("0.8", "0.9", "0.95"):
+            r = {s: m["recall"][s][ratio] for s in ("saccot", "edge", "random")}
+            check(r["saccot"] >= r["edge"] >= r["random"], f"cli ablate {ratio}: {r}")
+        print(f"  cli ablate (16 pairs, K={m['budget']}): {m['recall']}", flush=True)
+
+        # The fault-injected sweep: a child process dies after shard 0.
+        ck = tmp / "faulted"
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "saccot_tpu_torch.cli.main", "threedmatch", "--ckpt", str(ck),
+             "--fail-after-shard", "0"], cwd=root, capture_output=True, text=True, timeout=600)
+        print(f"  cli threedmatch --fail-after-shard 0 (child process, {time.perf_counter() - t0:.1f}"
+              f" s): exit {child.returncode}, {child.stdout.strip()[-80:]!r}", flush=True)
+        check(child.returncode == 17, f"fault injection: exit {child.returncode}: "
+              f"{child.stderr[-1500:]}")
+        check(sorted(p.name for p in ck.iterdir()) == ["shard_000000.npz"],
+              "fault injection: the child left other shards")
+        m = run("threedmatch resumed", ["threedmatch", "--ckpt", str(ck)])
+        T_res = SweepCheckpointer(str(ck)).merged()["T"][:32].astype(np.float32)
+        check(m["recall"] == out["threedmatch"]["recall"],
+              f"resume: recall {m['recall']} vs {out['threedmatch']['recall']}")
+        check(np.array_equal(T_res, T_tdm), "resume: T differs from the uninterrupted run's")
+        print(f"  cli resume: recall {m['recall']:.4f} equal to the uninterrupted run's, T bit for "
+              f"bit", flush=True)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    scaling = measure_scaling(CONFIGS["threedmatch"].params, device_counts=[1], device=dev)
+    torch.cuda.synchronize()
+    launches["measure_scaling"] = _build.launches()
+    for name in PATH_ROWS:
+        check(launches["measure_scaling"][name] > 0, f"measure_scaling: {name} was not launched")
+    print(f"  measure_scaling at size 1 (N=512, 8 pairs, 5 reps): "
+          f"{scaling['pairs_per_sec'][1]:.1f} pairs/s ({card})", flush=True)
+    out["measure_scaling"] = scaling
+
+    for r in rows:
+        counter = r["name"].replace("_large_n", "")
+        r["cli_launches"] = {k: v[counter] for k, v in launches.items() if v.get(counter)}
+    print(json.dumps({"cli": out}, default=str), flush=True)
+    print(f"phase 13 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
 
 def gloo_cuda_probe(dev):
     """Which collectives a gloo group runs on CUDA tensors itself (True) or
@@ -908,7 +1272,8 @@ def main():
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
@@ -1082,7 +1447,9 @@ def main():
                        num_anchors=256, neighbors_per_anchor=16, max_hypotheses=2048)
     P3, Q3, T3 = problem_batch(range(300, 332), device=dev, n=2048, outlier_ratio=0.9,
                                noise=0.01)
-    rec_k = recall(register_batch(P3, Q3, tdm), T3, 15.0, 0.30)
+    res3 = register_batch(P3, Q3, tdm)
+    rec_k = recall(res3, T3, 15.0, 0.30)
+    cli_ref = dict(threedmatch_T=res3.T.cpu().numpy(), threedmatch_recall=rec_k)
     rec_p = recall(register_batch(P3, Q3, tdm, impl="plain"), T3, 15.0, 0.30)
     check(abs(rec_k - rec_p) <= 1 / 32, f"3DMatch recall: kernels {rec_k}, plain {rec_p}")
     # The two redesigned kernels at the shapes this point gives them: 256
@@ -1311,6 +1678,8 @@ def main():
             check(r["launches"] > 0, f"{r['name']} was not launched by register_batch at kitti")
     for name, params in (("exact", kp), ("fast", kfast)):
         hold_weighted(PK, QK, params, TK, KITTI_CRITERION, f"kitti, {name}")
+    cli_ref.update(kitti_T=kitti_results["exact"].T.cpu().numpy(), kitti_P=PK, kitti_Q=QK,
+               kitti_params=kp)
     print("phase 7 ok", flush=True)
 
     # -- phase 8: the ring step and the direct-form degree route ---------------
@@ -1577,7 +1946,10 @@ def main():
     phase11(dev, rows)
 
     # -- phase 12: sequence SLAM and the sampler ablation ------------------
-    phase12(dev, rows)
+    cli_ref["slam_ate"] = phase12(dev, rows)
+
+    # -- phase 13: the command line ----------------------------------------
+    phase13(dev, rows, cli_ref, card)
 
     for r in rows:
         r["device_over_floor"] = r["device_ms"] / floor

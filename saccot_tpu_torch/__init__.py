@@ -23,11 +23,16 @@ Subpackages
 - ``kernels``  CUDA kernel wrappers, their plain versions, the build
 - ``dist``     DP / TP / SP over `torch.distributed` process groups, the
                column-block ring, the sharded sweep, a local rank launcher
+- ``cli``      the command line `python -m saccot_tpu_torch.cli.main <mode>`:
+               the run configurations, their runners, and the files,
+               sequence, external and ablate modes
 - ``utils``    `SacCotParams`, numpy <-> torch conversion, SE(3) helpers,
-               the SLAM-state checkpoint
-- ``io``, ``evaluation``  synthetic problems, `.npz` descriptors,
-               registration criteria, trajectory errors and the sampler
-               ablation `run_sampler_ablation`
+               the sweep and SLAM-state checkpoints, JSONL logging
+- ``io``, ``evaluation``  synthetic problems, `.npz` descriptors, cloud,
+               pose and `gt.log` files (`io/loaders`, the native loader
+               `io/native`), registration criteria, trajectory errors, the
+               sampler ablation `run_sampler_ablation` and the scaling
+               harness `measure_scaling`
 
 The port imports nothing of `saccot_tpu`: the static configurations
 (`SacCotParams`, `PipelineConfig`, `IcpParams`) and the NumPy helpers it

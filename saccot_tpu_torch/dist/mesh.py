@@ -10,7 +10,10 @@ three parallelism dimensions, in the JAX package's layout order:
            neighbouring ranks.
 
 The mesh is a `torch.distributed.device_mesh.DeviceMesh`; each axis's
-process group (`mesh.get_group(name)`) carries that axis's collectives.
+process group (`mesh.get_group(name)`) carries that axis's collectives. A
+single process that joined no group (no `WORLD_SIZE`, or 1) gets a
+`SingleRankMesh` instead, every axis of size 1, as the JAX package's mesh
+over one device.
 """
 
 from __future__ import annotations
@@ -20,15 +23,16 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import init_device_mesh
 
 AXES = ("pairs", "hyp", "corr")
 
 
-def init_distributed(backend: Optional[str] = None) -> str:
+def init_distributed(backend: Optional[str] = None) -> Optional[str]:
     """Join the process group named by the `env://` variables (MASTER_ADDR,
     MASTER_PORT, RANK, WORLD_SIZE; LOCAL_RANK and LOCAL_WORLD_SIZE default to
-    RANK and WORLD_SIZE) and return its backend.
+    RANK and WORLD_SIZE) and return its backend. A single process
+    (`WORLD_SIZE` unset or 1) joins nothing and returns None.
 
     backend=None picks NCCL when every rank of this host has a card of its
     own (rank LOCAL_RANK takes card LOCAL_RANK), else gloo: CPU tensors, or
@@ -37,6 +41,8 @@ def init_distributed(backend: Optional[str] = None) -> str:
     """
     if dist.is_initialized():
         return dist.get_backend()
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
     rank = int(os.environ["RANK"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
@@ -50,14 +56,29 @@ def init_distributed(backend: Optional[str] = None) -> str:
     return backend
 
 
-def make_mesh(pairs: int = 0, corr: int = 1, hyp: int = 1) -> DeviceMesh:
+class SingleRankMesh:
+    """The mesh of a process that joined no group: every axis of size 1,
+    this process at 0 on each. It answers the calls `axis_size`,
+    `axis_group` and the sweep make of a `DeviceMesh`."""
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return 1
+
+    def get_local_rank(self, name: str) -> int:
+        return 0
+
+
+def make_mesh(pairs: int = 0, corr: int = 1, hyp: int = 1):
     """A (pairs, hyp, corr) mesh over every rank of the default group.
 
     pairs=0 means "all remaining ranks on the pairs axis". Rank r sits at
     (r // (hyp * corr), r // corr % hyp, r % corr). Every rank must call it,
-    in the same order as its other group creations.
+    in the same order as its other group creations. With no group (one
+    process, see `init_distributed`) it is a `SingleRankMesh`.
     """
-    n = dist.get_world_size()
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError("WORLD_SIZE > 1: call init_distributed() before make_mesh()")
+    n = dist.get_world_size() if dist.is_initialized() else 1
     inner = corr * hyp
     if corr < 1 or hyp < 1 or n % inner:
         raise ValueError(f"corr*hyp={inner} must divide the world size {n}")
@@ -65,21 +86,23 @@ def make_mesh(pairs: int = 0, corr: int = 1, hyp: int = 1) -> DeviceMesh:
         pairs = n // inner
     if pairs * inner != n:
         raise ValueError(f"mesh {pairs}x{hyp}x{corr} does not cover the {n} ranks")
+    if not dist.is_initialized():
+        return SingleRankMesh()
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (pairs, hyp, corr), mesh_dim_names=AXES)
 
 
-def axis_size(mesh: DeviceMesh, name: str) -> int:
+def axis_size(mesh, name: str) -> int:
     return mesh.size(AXES.index(name))
 
 
-def axis_group(mesh: DeviceMesh, name: str):
+def axis_group(mesh, name: str):
     """The process group of one mesh axis, or None when the axis has size 1
     (nothing is sharded over it)."""
     return mesh.get_group(name) if axis_size(mesh, name) > 1 else None
 
 
-def local_batch_size(total: int, mesh: DeviceMesh, axis: str = "pairs") -> int:
+def local_batch_size(total: int, mesh, axis: str = "pairs") -> int:
     size = axis_size(mesh, axis)
     if total % size:
         raise ValueError(f"batch {total} not divisible by mesh axis {axis}={size}")

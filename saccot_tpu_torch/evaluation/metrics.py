@@ -1,9 +1,11 @@
 """Registration criteria and trajectory errors (the port's own copy of
-`registration_error`, `is_registered`, `registration_recall`, `ate` and
-`relative_pose_error` from `saccot_tpu/evaluation/metrics.py`).
+`registration_error`, `is_registered`, `model_rmse`, `registration_recall`,
+`ate` and `relative_pose_error` from `saccot_tpu/evaluation/metrics.py`).
 
 A pair counts as registered when its rotation error and translation error
-are both under the criterion; recall is the registered fraction. `ate`
+are both under the criterion; recall is the registered fraction.
+`model_rmse` is the object-scale (U3M) criterion: the RMSE of the model's
+points between the estimated and the true transform. `ate`
 aligns an estimated trajectory to the truth and reports the position
 error; `relative_pose_error` the drift over pose increments.
 """
@@ -31,6 +33,13 @@ def is_registered(
 ) -> bool:
     r, t = registration_error(T_est, T_gt)
     return (r < rot_thresh_deg) and (t < trans_thresh)
+
+
+def model_rmse(T_est: np.ndarray, T_gt: np.ndarray, model: np.ndarray) -> float:
+    """U3M-style: RMSE of the model cloud between the two transforms."""
+    a = se3np.apply_T(np.asarray(T_est, np.float64), model)
+    b = se3np.apply_T(np.asarray(T_gt, np.float64), model)
+    return float(np.sqrt(((a - b) ** 2).sum(-1).mean()))
 
 
 def registration_recall(

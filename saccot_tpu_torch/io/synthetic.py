@@ -1,11 +1,12 @@
 """Synthetic problems (the port's own copy of `blob_cloud`,
-`correspondence_problem`, `two_view_pair` and `slam_sequence` from
-`saccot_tpu/io/synthetic.py`).
+`correspondence_problem`, `two_view_pair`, `slam_sequence` and
+`model_views` from `saccot_tpu/io/synthetic.py`).
 
 A smooth closed surface (a spherical-harmonic-deformed sphere), a planted
 rigid transform, correspondence sets with a controlled outlier fraction,
 two partially overlapping noisy views of one surface for the
-cloud-to-transform pipeline, and a scan sequence with its per-edge
+cloud-to-transform pipeline, a set of views of one model for the
+all-pairs (U3M) sweep, and a scan sequence with its per-edge
 correspondence sets for sequence SLAM. Deterministic given the seed: the
 same seed gives the JAX package's arrays bit for bit
 (`tests/test_torch_isolation.py`).
@@ -173,3 +174,54 @@ def slam_sequence(
         edge_is_loop=np.asarray(is_loop),
         world=world.astype(np.float32),
     )
+
+
+def model_views(
+    seed: int = 0,
+    n_views: int = 8,
+    n_points: int = 4096,
+    cap_frac: float = 0.55,
+    noise: float = 0.002,
+    max_angle: float = 0.8,
+    max_trans: float = 0.5,
+):
+    """V partial views of ONE model surface, for the U3M all-pairs sweep.
+
+    The U3M protocol registers every unordered pair of a model's view set
+    (BASELINE.json:8 "full pairwise registration sweep") — views share
+    varying amounts of surface, so pairwise overlap spans near-0 to
+    ~cap_frac. Views are index subsets of a shared model cloud: view v
+    keeps the cap_frac fraction of points most aligned with its (Fibonacci
+    -sphere) view direction, then moves into its own random frame + noise.
+
+    Returns dict(views=[V arrays [n_v, 3]], T=[V, 4, 4] world->view,
+    idx=[V index arrays], model=[N, 3]) where exact pairwise overlap is
+    |idx_i & idx_j| / min(|idx_i|, |idx_j|) — no geometric threshold
+    needed at evaluation time.
+    """
+    rng = np.random.default_rng(seed)
+    model = blob_cloud(rng, n_points * 2)
+    dirs_n = model / np.linalg.norm(model, axis=1, keepdims=True)
+
+    # Fibonacci sphere view directions.
+    i = np.arange(n_views) + 0.5
+    phi = np.arccos(1 - 2 * i / n_views)
+    theta = np.pi * (1 + 5**0.5) * i
+    vdirs = np.stack([np.sin(phi) * np.cos(theta),
+                      np.sin(phi) * np.sin(theta),
+                      np.cos(phi)], axis=1)
+
+    views, Ts, idxs = [], [], []
+    for v in range(n_views):
+        score = dirs_n @ vdirs[v]
+        keep = np.argsort(-score)[: int(cap_frac * len(model))][:n_points]
+        keep = np.sort(keep)
+        T = se3np.random_transform(rng, max_angle_rad=max_angle,
+                                   max_trans=max_trans)
+        pts = se3np.apply_T(T, model[keep])
+        pts = pts + rng.normal(scale=noise, size=pts.shape)
+        views.append(pts.astype(np.float32))
+        Ts.append(T)
+        idxs.append(keep)
+    return dict(views=views, T=np.stack(Ts), idx=idxs,
+                model=model.astype(np.float32))

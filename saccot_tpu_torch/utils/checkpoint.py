@@ -1,7 +1,14 @@
-"""Checkpoint and resume of the SLAM state (port of the SLAM-state half of
-`saccot_tpu/utils/checkpoint.py`).
+"""Checkpoint and resume (port of `saccot_tpu/utils/checkpoint.py`).
 
-A state is a flat dict of arrays (poses, landmarks, the Gauss-Newton
+Two checkpointable states:
+
+1. Sweep progress (`SweepCheckpointer`): which pair shards are done and
+   their per-pair results, so a lost process resumes a long dataset sweep
+   from the last shard boundary.
+2. SLAM state (`save`, `restore`, `save_slam_state`): poses, landmarks and
+   the Gauss-Newton iterate, so BA resumes mid-solve.
+
+A SLAM state is a flat dict of arrays (poses, landmarks, the Gauss-Newton
 iterate count, the LM damping). `save` writes it with `torch.save` as CPU
 tensors to a temporary file beside `path` and renames it into place, so a
 crash mid-write leaves the previous checkpoint whole; `restore` reads it
@@ -42,6 +49,61 @@ def restore(path: str) -> Optional[Dict[str, np.ndarray]]:
         return None
     state = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v.numpy() for k, v in state.items()}
+
+
+class SweepCheckpointer:
+    """Shard-granular progress of a long pairwise sweep.
+
+    One `.npz` per shard in a plain directory, each written to a
+    dot-prefixed temporary file and renamed into place: append-only, so a
+    crash mid-record loses at most the shard in flight, and a single writer
+    (rank 0) needs no coordination. The files are the JAX package's: each
+    package resumes from the other's shards.
+    """
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        self.done: Dict[int, Dict[str, np.ndarray]] = {}
+        if path and os.path.isfile(path):
+            # Ignoring a regular file here would discard whatever progress it
+            # held and then fail inside os.makedirs at the first record.
+            raise ValueError(
+                f"sweep checkpoint path {path!r} exists as a regular file; "
+                "this checkpointer stores one .npz per shard in a directory. "
+                "Remove the file or choose a different --ckpt path."
+            )
+        if path and os.path.isdir(path):
+            for name in sorted(os.listdir(path)):
+                # Temporary files of a crash mid-record start with "." and
+                # must be skipped, or every resume would fail on them.
+                if not (name.startswith("shard_") and name.endswith(".npz")):
+                    continue
+                stem = name[len("shard_"):-len(".npz")]
+                if not stem.isdigit():
+                    continue
+                with np.load(os.path.join(path, name)) as z:
+                    self.done[int(stem)] = {k: z[k] for k in z.files}
+
+    def is_done(self, shard_idx: int) -> bool:
+        return shard_idx in self.done
+
+    def record(self, shard_idx: int, results: Dict[str, np.ndarray]) -> None:
+        self.done[shard_idx] = {k: np.asarray(v) for k, v in results.items()}
+        if self.path:
+            os.makedirs(self.path, exist_ok=True)
+            final = os.path.join(self.path, f"shard_{shard_idx:06d}.npz")
+            # np.savez keeps a name that already ends in .npz as it is.
+            tmp = os.path.join(self.path, f".tmp_shard_{shard_idx:06d}.npz")
+            np.savez(tmp, **self.done[shard_idx])
+            os.replace(tmp, final)
+
+    def merged(self) -> Dict[str, np.ndarray]:
+        """Concatenate per-shard results in shard order."""
+        out: Dict[str, list] = {}
+        for idx in sorted(self.done):
+            for k, v in self.done[idx].items():
+                out.setdefault(k, []).append(v)
+        return {k: np.concatenate(v, axis=0) for k, v in out.items()}
 
 
 def save_slam_state(path: str, poses, landmarks=None, gn_iter: int = 0, lam=None) -> None:

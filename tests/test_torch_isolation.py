@@ -240,3 +240,128 @@ def test_slam_and_ablation_configurations_match_the_jax_package():
         assert set(dt) - set(dj) == port_only
         assert {k: dt[k] for k in dj if k != "impl"} == {k: v for k, v in dj.items()
                                                           if k != "impl"}
+
+
+def test_cli_slice_copies_match_the_jax_package(tmp_path):
+    """The copies of the CLI slice: `model_rmse` and `model_views` give the
+    originals' values and arrays; the loaders are the originals character
+    for character but for the native module they name; the sweep
+    checkpoint's files are one format (each package resumes from the
+    other's shards); the run configurations are the JAX package's field by
+    field (but for `impl`, whose values are each package's own)."""
+    import inspect
+
+    from saccot_tpu.cli import configs as jconfigs
+    from saccot_tpu.io import loaders as jloaders
+    from saccot_tpu.utils.checkpoint import SweepCheckpointer as JSweepCheckpointer
+    from saccot_tpu_torch.cli import configs as tconfigs
+    from saccot_tpu_torch.io import loaders as tloaders
+    from saccot_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    rng = np.random.default_rng(11)
+    model = rng.normal(size=(300, 3))
+    for s in range(4):
+        T_est = jse3np.random_transform(rng, max_angle_rad=0.15 + 0.05 * s, max_trans=0.02 * s)
+        T_gt = jse3np.random_transform(rng)
+        assert tmetrics.model_rmse(T_est @ T_gt, T_gt, model) == \
+            jmetrics.model_rmse(T_est @ T_gt, T_gt, model)
+    for seed, kw in ((0, {}), (3, dict(n_views=5, n_points=700, cap_frac=0.4, noise=0.01))):
+        a = jsynthetic.model_views(seed=seed, **kw)
+        b = tsynthetic.model_views(seed=seed, **kw)
+        assert a.keys() == b.keys()
+        for k in ("T", "model"):
+            np.testing.assert_array_equal(a[k], b[k])
+        for k in ("views", "idx"):
+            assert len(a[k]) == len(b[k])
+            for x, y in zip(a[k], b[k]):
+                np.testing.assert_array_equal(x, y)
+                assert x.dtype == y.dtype
+
+    for name in ("load_ply", "load_pcd", "load_cloud", "load_kitti_poses", "save_log",
+                 "load_gt_log", "bucket_for"):
+        assert inspect.getsource(getattr(jloaders, name)) == \
+            inspect.getsource(getattr(tloaders, name)), name
+    assert inspect.getsource(jloaders.load_kitti_bin).replace("saccot_tpu.", "saccot_tpu_torch.") \
+        == inspect.getsource(tloaders.load_kitti_bin)
+    assert jloaders._PLY_TYPES == tloaders._PLY_TYPES
+
+    T = rng.normal(size=(4, 4, 4))
+    JSweepCheckpointer(str(tmp_path / "j")).record(0, dict(T=T, n=np.arange(4)))
+    SweepCheckpointer(str(tmp_path / "t")).record(0, dict(T=T, n=np.arange(4)))
+    for cls, other in ((SweepCheckpointer, "j"), (JSweepCheckpointer, "t")):
+        got = cls(str(tmp_path / other))
+        assert got.is_done(0) and not got.is_done(1)
+        np.testing.assert_array_equal(got.done[0]["T"], T)
+        np.testing.assert_array_equal(got.merged()["n"], np.arange(4))
+    assert sorted(p.name for p in (tmp_path / "j").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "t").iterdir())
+
+    def no_impl(cfg):
+        d = dataclasses.asdict(cfg)
+        d.pop("impl")
+        if d.get("pipeline") is not None:
+            d["pipeline"].pop("impl")
+        return d
+
+    assert jconfigs.CONFIGS.keys() == tconfigs.CONFIGS.keys()
+    for name, cfg in jconfigs.CONFIGS.items():
+        assert no_impl(tconfigs.CONFIGS[name]) == no_impl(cfg), name
+        assert tconfigs.CONFIGS[name].impl == "auto"
+    assert [f.name for f in dataclasses.fields(tconfigs.RunConfig)] == \
+        [f.name for f in dataclasses.fields(jconfigs.RunConfig)]
+    assert _fields(tconfigs.RunConfig, skip=("params", "pipeline")) == \
+        _fields(jconfigs.RunConfig, skip=("params", "pipeline"))
+    assert dataclasses.asdict(tconfigs._OBJ_PARAMS) == dataclasses.asdict(jconfigs._OBJ_PARAMS)
+    pipe = {k: v for k, v in dataclasses.asdict(tconfigs._PIPE).items() if k != "impl"}
+    assert pipe == {k: v for k, v in dataclasses.asdict(jconfigs._PIPE).items() if k != "impl"}
+    assert tconfigs.estimator_impl("auto") == "kernel"
+    for bad in ("jnp", "pallas"):
+        with pytest.raises(ValueError):
+            tconfigs.RunConfig(name="x", kind="sweep", impl=bad)
+    # The restatements below the command line agree with the table.
+    from saccot_tpu_torch.evaluation.ablation import OBJ_PARAMS
+    from saccot_tpu_torch.slam.frontend import SLAM_PARAMS
+
+    assert pipeline.BUNNY_PIPE == tconfigs._PIPE
+    assert OBJ_PARAMS == tconfigs._OBJ_PARAMS
+    assert SLAM_PARAMS == tconfigs.CONFIGS["slam"].params
+
+
+def test_cli_entry_points_default_to_the_card():
+    """Every runner and mode of the port's command line takes `device`,
+    "cuda" by default, beside the JAX function's own defaults."""
+    import inspect
+
+    from saccot_tpu.cli import external as jexternal
+    from saccot_tpu.cli import files as jfiles
+    from saccot_tpu.cli import runners as jrunners
+    from saccot_tpu.cli import sequence as jsequence
+    from saccot_tpu.evaluation import scaling as jscaling
+    from saccot_tpu_torch.cli import external, files, runners, sequence
+    from saccot_tpu_torch.evaluation import scaling
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    pairs = [(getattr(jrunners, n), getattr(runners, n)) for n in (
+        "run_pipeline_config", "run_sweep_config", "run_kitti_config", "run_slam_config",
+        "run_u3m_allpairs_config")]
+    pairs += [(jfiles.register_files, files.register_files),
+              (jexternal.run_external, external.run_external),
+              (jsequence.run_sequence_files, sequence.run_sequence_files),
+              (jsequence.default_sequence_config, sequence.default_sequence_config)]
+    for j, t in pairs:
+        dj, dt = defaults(j), defaults(t)
+        extra = set(dt) - set(dj)
+        assert extra <= {"device"}, (t.__name__, extra)
+        assert dt.get("device", "cuda") == "cuda", t.__name__
+        assert {k: dt[k] for k in dj if k != "impl"} == \
+            {k: v for k, v in dj.items() if k != "impl"}, t.__name__
+    js, ts = defaults(jscaling.measure_scaling), defaults(scaling.measure_scaling)
+    assert {k: ts[k] for k in js} == js and ts["device"] == "cuda"
+    assert sequence.default_sequence_config() == dataclasses.replace(
+        PipelineConfig(**{k: v for k, v in dataclasses.asdict(
+            jsequence.default_sequence_config()).items() if k not in ("impl", "estimator")}),
+        estimator=tparams.SacCotParams(**dataclasses.asdict(
+            jsequence.default_sequence_config().estimator)))
