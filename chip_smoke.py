@@ -120,11 +120,27 @@ Phases (any failure exits non-zero before the result lines are printed):
      in a child process (exit 17) and resumed to the uninterrupted run's
      recall and bits, `measure_scaling` at size 1; rows 1-4 held to their
      plain versions on the u3m and external inputs; one {"cli": {...}}
-     line of the metrics.
+     line of the metrics;
+ 14. the last four modules at the bench point: (a) the NumPy oracle
+     (`saccot_tpu_torch.oracle`) on 4 pairs (seeds 1000-1003, exact
+     configuration) on the host against `register_batch` on the card: the
+     same recall, T within 1e-3 deg and 1e-4, inliers within 1, the
+     oracle's pairs/s labelled with the host CPU; (b) one fast batch of
+     128 stage by stage (degrees, pool, solve, score, refine) under
+     `utils.profiling.StageTimer`, bit for bit `register_batch`, each
+     stage's `roofline_fraction`; (c) `utils.profiling.trace` around one
+     fast and one exact batch: the Chrome trace's device events name rows
+     1-4's `__global__` functions as often as their launch counters moved,
+     and every launch call of the batches has its kernel event;
+     (d) `utils.debug.nan_guard`: a clean fast batch has the unguarded
+     bits, and a NaN point named by the pool's triples raises
+     FloatingPointError naming the solve on the kernel and the plain
+     route; one {"phase14": {...}} line of the readings.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
-(`bound_ms`, from the attribution script), and its device ms over the
-launch floor (`device_over_floor`). The line before the last is a
+(`bound_ms` of the row's model in `saccot_tpu_torch.evaluation.roofline`),
+and its device ms over the launch floor (`device_over_floor`). The line
+before the last is a
 JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -138,31 +154,16 @@ import sys
 import time
 
 
-# The card's yardstick (FP32 instruction and memory rates), the instructions
-# of one scored pair (PAIR_OPS: distances, two roots, the predicate, the
-# i != j test and the masked accumulate) and the CUDA-event timer are defined
-# once, beside the per-operation attribution that measures them.
-from saccot_tpu_torch.scripts.exp_compat_ops import PAIR_OPS, bound_ms, sass_loops, time_ms
-
-# One 3-point solve: gathers, centroids and the 9-entry covariance (~90),
-# Horn's matrix and eight renormalised 4x4 squarings (~1,050), the column
-# pick, two polish steps and the rotation (~210).
-SOLVE_OPS = 1350
-# One (hypothesis, point) score: the residual (3 x 7), its square (5), the
-# threshold and the count.
-SCORE_OPS = 28
+# Every kernel bound (the card's FP32 instruction and memory rates, one
+# model of each kernel row's work from its shapes) is defined once, in
+# evaluation/roofline; the CUDA-event timer beside the per-operation
+# attribution that measures the degree loop.
+from saccot_tpu_torch.evaluation import roofline
+from saccot_tpu_torch.scripts.exp_compat_ops import sass_loops, time_ms
 
 
 class PhaseError(RuntimeError):
     pass
-
-
-def degrees_cost(b, R, C, same=False, masked=False):
-    """(ops, bytes) of weighted degrees of R rows against C columns: P and Q
-    read once (rows and columns once each unless they are the same tensors),
-    the masks, the degrees written."""
-    pts = R if same else R + C
-    return PAIR_OPS * b * R * C, 4 * b * (6 * pts + (pts if masked else 0) + R)
 
 
 def check(cond, msg):
@@ -1176,6 +1177,255 @@ def phase13(dev, rows, ref, card):
     print(f"phase 13 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
+# -- phase 14: the oracle, the stage timer and roofline, the trace, the guard --
+
+# The __global__ functions of rows 1-4 (csrc/) and the counters of
+# _build.LAUNCHES whose launches run each.
+TRACE_KERNELS = {
+    "two_sided_degrees_kernel": ("compat_degrees", "compat_degrees_direct", "ring_degrees",
+                                 "compat_ops_two_sided"),
+    "anchor_topb_kernel": ("anchor_topb", "anchor_topb_candidates", "anchor_topb_topt"),
+    "solve3_kernel": ("solve3",),
+    "score_kernel": ("score",),
+}
+# The oracle against the card, exact configuration: T per pair within these
+# (rotations by `se3np.rotation_distance_deg`, which has no arccos floor;
+# the CPU route at the same 4 pairs reads at most 1.0e-5 deg and 1.1e-7,
+# the card 1.7e-5 deg and 1.1e-7: room of about 60 and 900 times),
+# inlier counts within 1. tests/test_torch_oracle.py holds the CPU route
+# to the same limits.
+ORACLE_ROT_DEG, ORACLE_TRANS = 1e-3, 1e-4
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family
+    and model numbers of the first processor), the logical CPUs this
+    process sees and torch's CPU capability."""
+    import os
+
+    import torch
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'model not named')} (vendor {info.get('vendor_id', '?')}, "
+            f"family {info.get('cpu family', '?')}, model {info.get('model', '?')}), "
+            f"{os.cpu_count()} logical CPUs, {torch.backends.cpu.get_cpu_capability()}")
+
+
+def trace_kernel_counts(path, window):
+    """From a Chrome trace written by `utils.profiling.trace`, over the
+    kernel launch calls on the host (the runtime API's, ctypes launches
+    included) inside the `record_function` range `window`: {kernel function
+    name: device events}, the device events of those calls and the calls.
+    Fewer events than calls: the profiler dropped device records."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == window)
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    launches = [e for e in events
+                if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    calls = {e["args"]["correlation"] for e in launches if t0 <= e["ts"] <= t1}
+    counts, n_events = collections.Counter(), 0
+    for e in kernels:
+        if e["args"].get("correlation") in calls:
+            n_events += 1
+            m = re.search(r"\(anonymous namespace\)::(\w+)", e.get("name", ""))
+            if m:
+                counts[m.group(1)] += 1
+    return counts, n_events, len(calls)
+
+
+def phase14(dev, rows, card, fast, exact, P, Q):
+    """The last four modules on the card at the bench point: (a) the NumPy
+    oracle against `register_batch` (4 pairs, exact configuration); (b) one
+    fast batch of 128 stage by stage under `StageTimer`, each stage's
+    roofline fraction; (c) `trace()` around one fast and one exact batch,
+    rows 1-4's kernels in its device events as often as they launched; (d)
+    `nan_guard`: a clean fast batch keeps its bits, a NaN point raises in the
+    solve on the kernel and the plain route."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from saccot_tpu_torch import register_batch
+    from saccot_tpu_torch.engine import sac_cot
+    from saccot_tpu_torch.engine import triangles as tri_mod
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import score as kscore
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+    from saccot_tpu_torch.oracle import sac_cot as oracle_sac_cot
+    from saccot_tpu_torch.utils.convert import problem_batch, recall
+    from saccot_tpu_torch.utils.debug import nan_guard
+    from saccot_tpu_torch.utils.profiling import StageTimer, trace
+    from saccot_tpu_torch.utils.se3np import rotation_distance_deg
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) The oracle on the host against the card: seeds 1000-1003 (phase 3's
+    # first four pairs), exact configuration.
+    P4, Q4, T4 = problem_batch(range(1000, 1004), device=dev, n=1000, outlier_ratio=0.8,
+                               noise=0.004)
+    Pn, Qn = P4.cpu().numpy(), Q4.cpu().numpy()
+    t0 = time.perf_counter()
+    want = [oracle_sac_cot(Pn[b], Qn[b], exact) for b in range(4)]
+    oracle_s = time.perf_counter() - t0
+    got = register_batch(P4, Q4, exact)
+    T_card = got.T.cpu().numpy().astype(np.float64)
+    rec_card, rec_oracle = recall(got, T4, 5.0, 0.05), recall_np([w["T"] for w in want], T4,
+                                                                 5.0, 0.05)
+    check(rec_card == rec_oracle, f"oracle: recall {rec_oracle}, the card's {rec_card}")
+    rot = [float(rotation_distance_deg(T_card[b][:3, :3], want[b]["T"][:3, :3]))
+           for b in range(4)]
+    trans = [float(np.linalg.norm(T_card[b][:3, 3] - want[b]["T"][:3, 3])) for b in range(4)]
+    inl = [(int(got.num_inliers[b]), int(want[b]["num_inliers"])) for b in range(4)]
+    check(max(rot) <= ORACLE_ROT_DEG and max(trans) <= ORACLE_TRANS
+          and all(abs(a - b) <= 1 for a, b in inl),
+          f"oracle: T differs from the card's by {rot} deg, {trans}; inliers {inl}")
+    out["oracle"] = dict(pairs_per_s=4 / oracle_s, host_cpu=host_cpu(), recall=rec_oracle,
+                         max_rot_deg=max(rot), max_trans=max(trans))
+    print(f"  (a) oracle, 4 pairs (exact): recall {rec_oracle:.4f}, the card's {rec_card:.4f}; "
+          f"T within {max(rot):.3g} deg and {max(trans):.3g} of the card's (tolerance "
+          f"{ORACLE_ROT_DEG} deg, {ORACLE_TRANS}); inliers card/oracle {inl}; "
+          f"triangles {[int(w['num_triangles']) for w in want]}; the oracle "
+          f"{4 / oracle_s:.3f} pairs/s on the host CPU ({host_cpu()}), not the card",
+          flush=True)
+
+    # (b) One fast batch of 128 stage by stage, each stage's inputs the
+    # previous stage's outputs, computed and waited for before it starts.
+    batch, n = P.shape[:2]
+    ones = torch.ones((batch, n), device=dev)
+    timer = StageTimer()
+
+    def staged():
+        s = {}
+        with timer.stage("degrees", block_on=s):
+            s["deg"] = kcompat.degrees(P, Q, P, Q, fast)
+        with timer.stage("pool", block_on=s):
+            s["pool"] = tri_mod.triangle_pool_from_points(P, Q, s["deg"], fast)
+        with timer.stage("solve", block_on=s):
+            s["r9"], s["t3"] = ksolve.solve3(P, Q, s["pool"].triples)
+        with timer.stage("score", block_on=s):
+            s["scores"] = kscore.score_hypotheses(s["r9"], s["t3"], P, Q, fast.inlier_tau,
+                                                  mode=fast.scoring)[0]
+        with timer.stage("refine", block_on=s):
+            _, R, t = sac_cot.best_hypothesis(s["scores"], s["pool"].valid, s["r9"], s["t3"])
+            s["R"], s["t"], s["inl"] = sac_cot.refine(P, Q, R, t, fast, ones)
+        return s
+
+    staged()
+    torch.cuda.synchronize()
+    timer.timings.clear()
+    reps = 5
+    for _ in range(reps):
+        s = staged()
+    ref = register_batch(P, Q, fast)
+    check(torch.equal(s["R"], ref.R) and torch.equal(s["t"], ref.t)
+          and torch.equal(s["inl"], ref.inliers),
+          "stages: the staged batch differs from register_batch")
+    models = roofline.estimator_models(n, fast, batch)
+    stages = {}
+    for name, sec in timer.timings.items():
+        fr = roofline.roofline_fraction(models[name], sec / reps)
+        stages[name] = dict(ms=sec / reps * 1e3, bound_ms=roofline.stage_bound_seconds(
+            models[name]) * 1e3, binding=fr["binding"], fraction=fr["fraction_of_peak"])
+        print(f"  (b) {name:8s} {sec / reps * 1e3:8.4f} ms host (synced), bound "
+              f"{stages[name]['bound_ms']:.4f} ms ({fr['binding']}), fraction "
+              f"{fr['fraction_of_peak']:.4f}", flush=True)
+    total = sum(timer.timings.values()) / reps
+    flops = roofline.estimator_flop_count(n, fast, batch)
+    out["stages"] = stages
+    print(f"  (b) stages sum {total * 1e3:.4f} ms a batch of {batch}, bit for bit "
+          f"register_batch; estimator {flops:.4g} FP32 instructions, "
+          f"{flops / total:.4g}/s achieved against {roofline.PEAK_FP32_INSTRUCTIONS:.4g}/s "
+          f"({card})", flush=True)
+
+    # (c) The trace: the device events of rows 1-4's kernels, once per launch,
+    # among the launches of the range that holds the two batches. One trace:
+    # every launch call of the range has its device event (the capture's
+    # warm-up takes the profiler's losses at its start, PERF.md section 7),
+    # and each kernel's events match its counters exactly.
+    logdir = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with trace(str(logdir)) as path:
+        with torch.profiler.record_function("phase14/batches"):
+            for params in (fast, exact):
+                register_batch(P, Q, params)
+    launched = _build.launches()
+    counts, n_events, n_calls = trace_kernel_counts(path, "phase14/batches")
+    print(f"  (c) trace: {n_events} kernel events for the {n_calls} launch calls of the "
+          "batches", flush=True)
+    check(n_events == n_calls,
+          f"trace: {n_calls - n_events} of {n_calls} launches have no kernel record")
+    for kernel, counters in TRACE_KERNELS.items():
+        n_launched = sum(launched[c] for c in counters)
+        check(n_launched > 0 and counts[kernel] == n_launched,
+              f"trace: {kernel} in {counts[kernel]} device events, launched {n_launched} times")
+    for r in rows:
+        if r["name"] in ("compat_degrees", "anchor_topb_candidates", "anchor_topb_topt",
+                         "solve3", "score"):
+            r["phase14_launches"] = launched[r["name"]]
+            check(r["phase14_launches"] > 0, f"{r['name']} was not launched in phase 14")
+    print(f"  (c) trace {path.name} ({path.stat().st_size} bytes): device events "
+          f"{ {k: counts[k] for k in TRACE_KERNELS} } = launches {launched}", flush=True)
+
+    # (d) The guard: a clean fast batch keeps its bits; a NaN point named by
+    # triples of pair 0 raises in the solve on both routes.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with nan_guard():
+        guarded = register_batch(P, Q, fast)
+    guard_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(guarded, ref)),
+          "guard: the guarded batch differs from the unguarded one")
+    triples = s["pool"].triples
+    i = int(triples[0, 0, 0])
+    Pnan = P.clone()
+    Pnan[0, i, 1] = float("nan")
+    named = (triples[0] == i).any(dim=1)
+    r9n = ksolve.solve3(Pnan, Q, triples)[0]
+    check(torch.equal(torch.isnan(r9n[0]).any(dim=0), named)
+          and not torch.isnan(r9n[1:]).any(), "guard: the NaN did not reach exactly the "
+          "hypotheses that name its point")
+    msgs = {}
+    for route, solve in (("kernel", ksolve.solve3), ("plain", ksolve.solve3_reference)):
+        before = _build.launches()["solve3"]
+        try:
+            with nan_guard():
+                solve(Pnan, Q, triples)
+        except FloatingPointError as e:
+            msgs[route] = str(e)
+            check("solve3" in str(e), f"guard: the {route} route's error names no solve: {e}")
+        else:
+            raise PhaseError(f"guard: a NaN point through the {route} solve did not raise")
+        check(_build.launches()["solve3"] == before + (route == "kernel"),
+              f"guard: the {route} route launched the solve kernel "
+              f"{_build.launches()['solve3'] - before} times")
+    out["guard"] = dict(guarded_ms=guard_ms, named_hypotheses=int(named.sum()), raised=msgs)
+    print(f"  (d) guard: the guarded fast batch ({guard_ms:.1f} ms host) has the unguarded "
+          f"bits; point {i} of pair 0 set to NaN reaches the {int(named.sum())} hypotheses "
+          f"that name it; raised {msgs}", flush=True)
+    print(json.dumps({"phase14": out}), flush=True)
+    print(f"phase 14 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
 def gloo_cuda_probe(dev):
     """Which collectives a gloo group runs on CUDA tensors itself (True) or
     refuses (the error's first line)."""
@@ -1337,15 +1587,8 @@ def main():
     tau, sep = fast.compat_tau, fast.min_separation
     rows = []
 
-    def solve_cost(b, n, k):
-        # triples read, the point rows they name (at most 3K), r9 and t3 written
-        return SOLVE_OPS * b * k, 24 * b * k + 24 * b * min(n, 3 * k) + 48 * b * k
-
-    def score_cost(b, n, k):
-        return SCORE_OPS * b * k * n, 24 * b * n + 48 * b * k + 8 * b * k
-
-    def row(name, source, replaces, err, ms, plain_ms, counter, cost, **extra):
-        b_ms, b_by = bound_ms(*cost)
+    def row(name, source, replaces, err, ms, plain_ms, counter, model, **extra):
+        b_ms, b_by = roofline.bound_ms(model)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          counter=counter, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
@@ -1363,26 +1606,18 @@ def main():
         "saccot_tpu/kernels/compat.py:96", (deg - deg_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(P, Q, P, Q, fast)),
         time_ms(lambda: kcompat.degrees_reference(P, Q, P, Q, fast)), "compat_degrees",
-        degrees_cost(128, 1000, 1000, same=True),
+        roofline.compat_degrees_model(1000, 128),
         device_ms=kernel_device_ms(lambda: kcompat.degrees(P, Q, P, Q, fast)),
         plan=degree_plan_str(128, 1000, 1000))
 
     _, anchors = ktri.topk_stable(deg_ref, A)
-    cands = 128 * A * B * (B - 1) // 2
-    anchor_in = 4 * 128 * 1000 * 6 + 8 * 128 * A + 12 * 128 * A * B
-    anchor_cost = {
-        "candidates": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 3) * cands,
-                       anchor_in + 4 * cands),
-        "topt": ((PAIR_OPS + 1) * 128 * A * 1000 + (PAIR_OPS + 4) * cands,
-                 anchor_in + 20 * 128 * A * T),
-    }
     anchor_err = hold_anchor(P, Q, anchors, B, T, tau, sep, "the bench point")
-    for mode, kw in (("candidates", {"emit_candidates": True}), ("topt", {"top_t": T})):
+    for mode, kw, t in (("candidates", {"emit_candidates": True}, 0), ("topt", {"top_t": T}, T)):
         row(f"anchor_topb_{mode}", "saccot_tpu_torch/csrc/anchor_topb.cu",
             "saccot_tpu/kernels/triangles.py:42", anchor_err[mode],
             time_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep, **kw)),
             time_ms(lambda: ktri.anchor_neighbors_reference(P, Q, anchors, B, tau, sep, **kw)),
-            f"anchor_topb_{mode}", anchor_cost[mode],
+            f"anchor_topb_{mode}", roofline.pool_model(1000, A, B, t, 128),
             device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors(P, Q, anchors, B, tau, sep,
                                                                      **kw)),
             plan=plan_str(ktri.anchor_plan(1000, B)))
@@ -1398,7 +1633,7 @@ def main():
     row("solve3", "saccot_tpu_torch/csrc/solve3.cu", "saccot_tpu/kernels/solve3.py:73", err,
         time_ms(lambda: ksolve.solve3(P, Q, triples)),
         time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
-        solve_cost(128, 1000, triples.shape[1]),
+        roofline.solve_model(1000, triples.shape[1], 128),
         device_ms=kernel_device_ms(lambda: ksolve.solve3(P, Q, triples)),
         plan=solve_plan_str(128, triples.shape[1]))
 
@@ -1407,7 +1642,7 @@ def main():
         time_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q, fast.inlier_tau)),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q,
                                                           fast.inlier_tau)), "score",
-        score_cost(128, 1000, r9_ref.shape[2]),
+        roofline.scoring_model(1000, r9_ref.shape[2], 128),
         device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q,
                                                                    fast.inlier_tau)))
     print("phase 3 ok", flush=True)
@@ -1490,7 +1725,7 @@ def main():
         time_ms(lambda: kcompat.degrees(PK, QK, PK, QK, kp), reps=10),
         time_ms(lambda: kcompat.degrees_reference(PK, QK, PK, QK, kp), **big),
         "compat_degrees_tri",
-        ((PAIR_OPS + 1) * 2 * 50000 * 49999 // 2, 4 * 2 * 50000 * 7),
+        roofline.compat_degrees_model(50000, 2),
         device_ms=kernel_device_ms(lambda: kcompat.degrees(PK, QK, PK, QK, kp), reps=5))
     print(f"  compat_degrees two-sided kernel at the same shape: {two_sided_ms:.4f} ms, "
           f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g} "
@@ -1546,7 +1781,7 @@ def main():
         "saccot_tpu/kernels/triangles.py:201", err_s,
         time_ms(lambda: ktri.anchor_neighbors_stream(*sargs), reps=10),
         time_ms(lambda: ktri.anchor_neighbors_reference(*sargs), **big), "anchor_topb_stream",
-        ((PAIR_OPS + 1) * 2 * A * 50000, 4 * 2 * 50000 * 6 + 8 * 2 * A + 12 * 2 * A * B),
+        roofline.anchor_rows_model(50000, A, B, 2),
         device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors_stream(*sargs)),
         plan=f"{plan_str(splan)}, {splan.blocks} blocks")
 
@@ -1591,7 +1826,7 @@ def main():
         "saccot_tpu/kernels/triangles.py:378", err_c,
         time_ms(lambda: ktri.candidate_topt(*cargs)),
         time_ms(lambda: ktri.candidate_topt_reference(*cargs)), "candidate_topt",
-        ((PAIR_OPS + 4) * 2 * A * B * (B - 1) // 2, 2 * A * B * 36 + 20 * 2 * A * T),
+        roofline.candidate_topt_model(A, B, T, 2),
         device_ms=kernel_device_ms(lambda: ktri.candidate_topt(*cargs)),
         plan=f"{plan_str(cplan)}, {cplan.blocks} blocks")
 
@@ -1617,7 +1852,7 @@ def main():
         "saccot_tpu/kernels/solve3.py:124", err,
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
         time_ms(lambda: ksolve.solve3_reference(PK, QK, ktrip)), "solve3",
-        solve_cost(2, 50000, ktrip.shape[1]),
+        roofline.solve_model(50000, ktrip.shape[1], 2),
         device_ms=kernel_device_ms(lambda: ksolve.solve3(PK, QK, ktrip)),
         plan=solve_plan_str(2, ktrip.shape[1]))
     kargs = (r9_ref, t3_ref, PK, QK, kp.inlier_tau)
@@ -1627,7 +1862,7 @@ def main():
                 reps=10),
         time_ms(lambda: kscore.score_hypotheses_reference(r9_ref, t3_ref, PK, QK,
                                                           kp.inlier_tau), **big), "score",
-        score_cost(2, 50000, r9_ref.shape[2]),
+        roofline.scoring_model(50000, r9_ref.shape[2], 2),
         device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, PK, QK,
                                                                    kp.inlier_tau)))
     weighted_ms = time_ms(lambda: kscore.score_hypotheses(*kargs, mode="weighted"), reps=10)
@@ -1773,7 +2008,7 @@ def main():
         "saccot_tpu/kernels/compat.py:53", (sp_direct - sp_ref).abs().max().item(),
         time_ms(lambda: kcompat.degrees(*sp_args, row_offset=h, mxu=False)),
         time_ms(lambda: kcompat.degrees_reference(*sp_args, row_offset=h)),
-        "compat_degrees_direct", degrees_cost(32, 2048 - h, 2048),
+        "compat_degrees_direct", roofline.compat_degrees_model(2048, 32, rows=2048 - h),
         device_ms=kernel_device_ms(lambda: kcompat.degrees(*sp_args, row_offset=h, mxu=False)),
         plan=degree_plan_str(32, 2048 - h, 2048))
     # One step at kitti d = 2 (25,000 x 25,000 per pair) and at the bench, d = 2.
@@ -1788,11 +2023,12 @@ def main():
         "saccot_tpu/kernels/ring_compat.py:53", ring_err,
         time_ms(lambda: kring.ring_degrees_step(*step_args), reps=10),
         time_ms(lambda: kring.ring_degrees_step_reference(*step_args), **big), "ring_degrees",
-        (PAIR_OPS * 2 * 25000 * 25000, 2 * 28 * 2 * 25000 + 8 * 2 * 25000),
+        roofline.ring_step_model(25000, 25000, 2),
         device_ms=kernel_device_ms(lambda: kring.ring_degrees_step(*step_args)),
         plan=degree_plan_str(2, 25000, 25000))
     print(f"  ring_degrees step at the bench, d=2: kernel {bench_ms:.4f} ms, "
-          f"plain {bench_plain_ms:.4f} ms, bound {bound_ms(PAIR_OPS * 128 * 500 * 500, 0)[0]:.4f} "
+          f"plain {bench_plain_ms:.4f} ms, bound "
+          f"{roofline.bound_ms(roofline.ring_step_model(500, 500, 128))[0]:.4f} "
           f"ms (operations); {degree_plan_str(128, 500, 500)}", flush=True)
     print("phase 8 ok", flush=True)
 
@@ -1932,7 +2168,7 @@ def main():
     for form in kops.FORMS:
         n = ops_launches[f"compat_ops_{form}"]
         check(n > 0, f"compat_ops {form} was not launched by the attribution run")
-        b_ms, b_by = bound_ms(*xops.cost("full", form, 1, 50000))
+        b_ms, b_by = roofline.bound_ms(roofline.compat_ops_model("full", form, 50000))
         rows.append(dict(
             name=f"compat_ops_{form}", route="cuda", source="saccot_tpu_torch/csrc/compat_ops.cu",
             replaces="scripts/exp_compat_ops.py:40", launches=n, max_abs_err=full_err[form],
@@ -1950,6 +2186,9 @@ def main():
 
     # -- phase 13: the command line ----------------------------------------
     phase13(dev, rows, cli_ref, card)
+
+    # -- phase 14: the oracle, the stage timer and roofline, the trace, the guard
+    phase14(dev, rows, card, fast, exact, P, Q)
 
     for r in rows:
         r["device_over_floor"] = r["device_ms"] / floor

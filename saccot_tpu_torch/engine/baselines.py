@@ -32,9 +32,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 import torch
 
 from saccot_tpu_torch.engine import compat as compat_mod
-from saccot_tpu_torch.engine import score as score_mod
-from saccot_tpu_torch.engine.sac_cot import _stages, register_pair
-from saccot_tpu_torch.engine.svd3 import transform_from_rt, umeyama
+from saccot_tpu_torch.engine.sac_cot import _stages, best_hypothesis, refine, register_pair
+from saccot_tpu_torch.engine.svd3 import transform_from_rt
 from saccot_tpu_torch.kernels.triangles import topk_stable
 from saccot_tpu_torch.utils.params import SacCotParams
 
@@ -52,27 +51,14 @@ class BaselineResult(NamedTuple):
 
 def _score_refine(r9, t3, P, Q, m, kmask, params: SacCotParams, valid, score_fn):
     """Shared tail: score the K hypotheses (SoA r9 [batch, 9, K], t3
-    [batch, 3, K]), mask invalid ones to -1, take the first maximum, then
-    `refine_iters` weighted-Umeyama passes on its inliers (a pass with
-    fewer than 3 inliers keeps the previous fit)."""
-    batch = P.shape[0]
+    [batch, 3, K]), take the first maximum of the valid ones and refine it:
+    the estimator's own `best_hypothesis` and `refine`."""
     scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring)
-    scores = torch.where(valid, scores, -1.0)
-    best = torch.argmax(scores, dim=1)                                   # first maximum
-    Rb = torch.gather(r9, 2, best[:, None, None].expand(batch, 9, 1)).reshape(batch, 3, 3)
-    tb = torch.gather(t3, 2, best[:, None, None].expand(batch, 3, 1))[..., 0]
-    inl = score_mod.inlier_mask(Rb, tb, P, Q, params.inlier_tau, mask=m)
-    for _ in range(params.refine_iters):
-        w = inl.to(torch.float32) * m
-        Rf, tf = umeyama(P, Q, w=w)
-        keep = w.sum(dim=1) >= 3.0
-        Rb = torch.where(keep[:, None, None], Rf, Rb)
-        tb = torch.where(keep[:, None], tf, tb)
-        inl = score_mod.inlier_mask(Rb, tb, P, Q, params.inlier_tau, mask=m)
+    best_score, Rb, tb = best_hypothesis(scores, valid, r9, t3)
+    Rb, tb, inl = refine(P, Q, Rb, tb, params, m)
     return BaselineResult(
         R=Rb, t=tb, T=transform_from_rt(Rb, tb), inliers=inl,
-        num_inliers=inl.sum(dim=1, dtype=torch.int32),
-        best_score=torch.gather(scores, 1, best[:, None])[:, 0],
+        num_inliers=inl.sum(dim=1, dtype=torch.int32), best_score=best_score,
     )
 
 

@@ -27,7 +27,7 @@ in the JAX package) run over `torch.distributed` groups:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +61,46 @@ def _stages(impl: str):
         return (compat_k.degrees_reference, solve3_k.solve3_reference,
                 score_k.score_hypotheses_reference)
     raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+
+
+def best_hypothesis(
+    scores: torch.Tensor, valid: torch.Tensor, r9: torch.Tensor, t3: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first maximum of each pair's valid hypotheses (scores, valid
+    [batch, K]; r9 [batch, 9, K], t3 [batch, 3, K]): its score [batch],
+    R [batch, 3, 3] and t [batch, 3]."""
+    batch = scores.shape[0]
+    scores = torch.where(valid, scores, -1.0)
+    best = torch.argmax(scores, dim=1)                    # first maximum
+    best_score = torch.gather(scores, 1, best[:, None])[:, 0]
+    Rb = torch.gather(r9, 2, best[:, None, None].expand(batch, 9, 1)).reshape(batch, 3, 3)
+    tb = torch.gather(t3, 2, best[:, None, None].expand(batch, 3, 1))[..., 0]
+    return best_score, Rb, tb
+
+
+def refine(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    params: SacCotParams,
+    m: torch.Tensor,
+    corr_group=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`params.refine_iters` weighted-Umeyama fits on the inlier set of
+    (R, t), each followed by its inlier pass; a pair with fewer than 3
+    inliers keeps its previous fit. m [batch, N]: the correspondence mask
+    (ones where there is none). Returns R, t and the inlier mask [batch, N]."""
+    inl = score_mod.inlier_mask(R, t, P, Q, params.inlier_tau, mask=m)
+    for _ in range(params.refine_iters):
+        w = inl.to(torch.float32) * m
+        n = all_reduce(w.sum(dim=1), corr_group)
+        Rf, tf = umeyama(P, Q, w=w, group=corr_group)
+        keep = n >= 3.0  # keep the previous fit when < 3 inliers
+        R = torch.where(keep[:, None, None], Rf, R)
+        t = torch.where(keep[:, None], tf, t)
+        inl = score_mod.inlier_mask(R, t, P, Q, params.inlier_tau, mask=m)
+    return R, t, inl
 
 
 def _register_batch(
@@ -119,11 +159,7 @@ def _register_batch(
     scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring,
                          group=corr_group)
 
-    scores = torch.where(hyp_valid, scores, -1.0)
-    best = torch.argmax(scores, dim=1)                    # first maximum
-    best_score = torch.gather(scores, 1, best[:, None])[:, 0]
-    Rb = torch.gather(r9, 2, best[:, None, None].expand(batch, 9, 1)).reshape(batch, 3, 3)
-    tb = torch.gather(t3, 2, best[:, None, None].expand(batch, 3, 1))[..., 0]
+    best_score, Rb, tb = best_hypothesis(scores, hyp_valid, r9, t3)
     if hyp_group is not None:
         # Champions of every slice, gathered in rank order: the argmax over
         # them keeps the first maximum of the whole pool.
@@ -134,15 +170,7 @@ def _register_batch(
         rows = torch.arange(batch, device=P.device)
         best_score, Rb, tb = g_scores[g_best, rows], g_R[g_best, rows], g_t[g_best, rows]
 
-    inl = score_mod.inlier_mask(Rb, tb, P, Q, params.inlier_tau, mask=m)
-    for _ in range(params.refine_iters):
-        w = inl.to(torch.float32) * m
-        n = all_reduce(w.sum(dim=1), corr_group)
-        Rf, tf = umeyama(P, Q, w=w, group=corr_group)
-        keep = n >= 3.0  # keep the previous fit when < 3 inliers
-        Rb = torch.where(keep[:, None, None], Rf, Rb)
-        tb = torch.where(keep[:, None], tf, tb)
-        inl = score_mod.inlier_mask(Rb, tb, P, Q, params.inlier_tau, mask=m)
+    Rb, tb, inl = refine(P, Q, Rb, tb, params, m, corr_group)
 
     success = pool.valid.any(dim=1)
     eye = torch.eye(3, dtype=torch.float32, device=P.device)

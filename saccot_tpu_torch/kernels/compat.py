@@ -32,6 +32,7 @@ from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import (
     f32_points, optional_mask, ptr, sm_count, stream_of, tickets,
 )
+from saccot_tpu_torch.utils import debug
 from saccot_tpu_torch.utils.params import SacCotParams
 
 
@@ -224,6 +225,7 @@ def _two_sided(P_rows, Q_rows, P_cols, Q_cols, params, row_offset, mask_rows, ma
     )
     _build.check(rc, counter)
     _build.LAUNCHES[counter] += 1
+    debug.check_kernel(counter, deg)
     return deg
 
 
@@ -261,4 +263,5 @@ def degrees_tri(
     )
     _build.check(rc, "compat_degrees_tri")
     _build.LAUNCHES["compat_degrees_tri"] += 1
+    debug.check_kernel("compat_degrees_tri", deg)
     return deg

@@ -38,6 +38,7 @@ from saccot_tpu_torch.engine.compat import _BLOCK_ELEMS, cross_sq_distances, pai
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_points, ptr, sm_count, stream_of
 from saccot_tpu_torch.kernels.compat import degree_plan, split_scratch
+from saccot_tpu_torch.utils import debug
 from saccot_tpu_torch.utils.params import SacCotParams
 
 MODES = ("gram_only", "d2_only", "one_sqrt", "no_sqrt_tail", "full")
@@ -142,4 +143,5 @@ def variant_degrees(P: torch.Tensor, Q: torch.Tensor, params: SacCotParams, mode
     )
     _build.check(rc, counter)
     _build.LAUNCHES[counter] += 1
+    debug.check_kernel(counter, deg)
     return deg

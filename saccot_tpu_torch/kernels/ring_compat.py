@@ -25,6 +25,7 @@ from saccot_tpu_torch.engine import compat as compat_mod
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import f32_tensor, ptr, sm_count, stream_of
 from saccot_tpu_torch.kernels.compat import degree_plan, split_scratch
+from saccot_tpu_torch.utils import debug
 from saccot_tpu_torch.utils.params import SacCotParams
 
 PACKED_ROWS = 8
@@ -113,4 +114,5 @@ def ring_degrees_step(
     )
     _build.check(rc, "ring_degrees")
     _build.LAUNCHES["ring_degrees"] += 1
+    debug.check_kernel("ring_degrees", deg)
     return deg

@@ -20,6 +20,7 @@ from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import (
     f32_points, optional_mask, ptr, sm_count, stream_of, tickets,
 )
+from saccot_tpu_torch.utils import debug
 
 
 # The kernel's block: 128 threads, two hypotheses each (csrc/score.cu kThreads,
@@ -154,6 +155,7 @@ def score_hypotheses(
     )
     _build.check(rc, "score")
     _build.LAUNCHES["score"] += 1
+    debug.check_kernel("score", scores)
     if group is None:
         return scores, counts
     return reduce_scores(counts, scores if mode == "weighted" else None, group)

@@ -24,6 +24,7 @@ from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels._common import (
     f32_points, index_tensor, ptr, sm_count, stream_of,
 )
+from saccot_tpu_torch.utils import debug
 
 MAX_THREADS = 256    # threads a block (the kernel's launch bound)
 # Blocks of THREADS wherever they cover the card's SMs (row 3's form at the
@@ -119,4 +120,5 @@ def _solve(P, Q, triples, plan: SolvePlan):
                            batch, N, K, plan.threads, stream_of(r9))
     _build.check(rc, "solve3")
     _build.LAUNCHES["solve3"] += 1
+    debug.check_kernel("solve3", r9, t3)
     return r9, t3

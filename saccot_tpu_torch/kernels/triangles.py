@@ -37,6 +37,7 @@ from saccot_tpu_torch.kernels._common import (
     f32_points, f32_tensor, index_tensor, optional_mask, ptr, sm_count, stream_of, tickets,
 )
 from saccot_tpu_torch.kernels.compat import SCRATCH_BYTES
+from saccot_tpu_torch.utils import debug
 
 MAX_N_FUSED = 4096   # the anchor row lives in shared memory (16 KB)
 MAX_NEIGHBORS = 32   # the B x B pair grid lives in shared memory
@@ -328,6 +329,7 @@ def _candidate(nbr_s, nbr_idx, P, Q, top_t, compat_tau, min_separation, plan: Ca
         )
         _build.check(rc, "candidate_topt")
         _build.LAUNCHES["candidate_topt"] += 1
+        debug.check_kernel("candidate_topt", cand)
     return cand, cand_j, cand_k
 
 
@@ -398,6 +400,7 @@ def _stream(P, Q, anchors, B, compat_tau, min_separation, mask, anchor_mask,
         )
         _build.check(rc, "anchor_topb_stream")
         _build.LAUNCHES["anchor_topb_stream"] += 1
+        debug.check_kernel("anchor_topb_stream", nbr_s)
     # B <= N, so every slot holds a real column; the clamp keeps downstream
     # gathers safe, as the TPU wrapper's does.
     return nbr_s, nbr_idx.clamp_(max=N - 1)
@@ -472,6 +475,7 @@ def anchor_neighbors(
         )
         _build.check(rc, counter)
         _build.LAUNCHES[counter] += 1
+        debug.check_kernel(counter, nbr_s, cand)
     # Selections carry column indices < N by construction; the clamps keep
     # the downstream gathers safe, as the TPU wrapper's do.
     nbr_idx = nbr_idx.clamp_(max=N - 1)

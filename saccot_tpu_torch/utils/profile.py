@@ -31,6 +31,7 @@ from saccot_tpu_torch.engine.sac_cot import register_batch
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch
 from saccot_tpu_torch.utils.params import SacCotParams
+from saccot_tpu_torch.utils.profiling import is_warm_up, profiler
 
 _BENCH = SacCotParams(compat_tau=0.03, min_separation=0.05, inlier_tau=0.03, num_anchors=256,
                       neighbors_per_anchor=12, max_hypotheses=1024)
@@ -82,12 +83,9 @@ def _total_device_us(row) -> float:
 
 
 def profiler_rows(fn, batches: int):
-    """`torch.profiler`'s rows (`key_averages()`) over `batches` calls of fn;
-    the device is traced where there is one."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    """`torch.profiler`'s rows (`key_averages()`) over `batches` calls of fn
+    (`utils.profiling.profiler`: the device is traced where there is one)."""
+    with profiler() as prof:
         for _ in range(batches):
             fn()
         if torch.cuda.is_available():
@@ -97,9 +95,11 @@ def profiler_rows(fn, batches: int):
 
 def _kernel_rows(rows):
     """The CUDA kernel rows, without the device side of `record_function`
-    ranges (a range's span, not a kernel)."""
+    ranges (a range's span, not a kernel) and without the capture's
+    warm-up (`utils.profiling.profiler`)."""
     return [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(r, "is_user_annotation", False) and _device_us(r) > 0]
+            and not getattr(r, "is_user_annotation", False) and _device_us(r) > 0
+            and not is_warm_up(r.key)]
 
 
 def _profile(fn, batches: int):

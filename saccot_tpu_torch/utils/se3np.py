@@ -93,6 +93,14 @@ def rotation_angle_deg(R: np.ndarray) -> np.ndarray:
     return np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
 
 
+def rotation_distance_deg(R_a: np.ndarray, R_b: np.ndarray) -> np.ndarray:
+    """Angle in degrees between two rotations, from |R_a - R_b|_F =
+    2 sqrt(2) sin(angle / 2): exact near 0, where `rotation_angle_deg` of
+    R_a R_b^T meets the float floor of the arccos of its trace."""
+    d = np.linalg.norm(np.asarray(R_a, np.float64) - np.asarray(R_b, np.float64), axis=(-2, -1))
+    return np.degrees(2.0 * np.arcsin(np.minimum(1.0, d / (2.0 * np.sqrt(2.0)))))
+
+
 def random_transform(rng: np.random.Generator, max_angle_rad: float = np.pi / 2,
                      max_trans: float = 1.0) -> np.ndarray:
     axis = rng.normal(size=3)

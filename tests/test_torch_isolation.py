@@ -365,3 +365,30 @@ def test_cli_entry_points_default_to_the_card():
             jsequence.default_sequence_config()).items() if k not in ("impl", "estimator")}),
         estimator=tparams.SacCotParams(**dataclasses.asdict(
             jsequence.default_sequence_config().estimator)))
+
+
+def test_oracle_copy_matches_the_jax_package_line_for_line():
+    """`saccot_tpu_torch/oracle/saccot.py` below its module docstring is
+    `saccot_tpu/oracle/saccot.py` line for line, but for the one import of
+    `SacCotParams`, which names the port's copy; `__init__` exports the same
+    names."""
+    def body(path: Path):
+        src = path.read_text()
+        doc = ast.parse(src).body[0]
+        assert isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant)
+        return src.splitlines()[doc.end_lineno:]
+
+    jax_lines = body(REPO / "saccot_tpu" / "oracle" / "saccot.py")
+    port_lines = body(REPO / "saccot_tpu_torch" / "oracle" / "saccot.py")
+    assert len(port_lines) == len(jax_lines) > 200
+    differ = [(a, b) for a, b in zip(jax_lines, port_lines) if a != b]
+    assert differ == [("from saccot_tpu.utils.params import SacCotParams",
+                       "from saccot_tpu_torch.utils.params import SacCotParams")]
+
+    def exported(path: Path):
+        tree = ast.parse(path.read_text())
+        return [a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+                for a in node.names]
+
+    assert exported(REPO / "saccot_tpu_torch" / "oracle" / "__init__.py") == \
+        exported(REPO / "saccot_tpu" / "oracle" / "__init__.py")
