@@ -21,7 +21,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      and the point splits of the score kernel at each shape, and the
      two-sided degree loop's `degree_plan` (rows a thread, column splits)
      at every degree shape of phases 3, 6, 8 and 10; the solve bit for bit
-     against its plain version, with its `solve_plan`;
+     against its plain version, with its `solve_plan`, and under every
+     block size of its sweep (`hold_solve_plans`: blocks of 32-256);
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      noise 0.01, exact configuration, 15 deg / 0.30 criterion) through the
      kernels and through the plain versions on the card; the fused anchor
      and score kernels at its shapes (256 anchors, B=16, N=2048; 2,048
-     hypotheses a pair), held as in phase 3;
+     hypotheses a pair), held as in phase 3, and the solve under every
+     block size;
   6. the large-N kernels against their plain versions at the kitti shapes
      (batch 2, N=50,000, A=512, B=16, T=4, K=2048): the symmetric degree
      kernel (also bit-identical across two calls, and against the two-sided
@@ -46,8 +48,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      its sweep (the same bits, also for each half of the anchors alone, and
      at N=3,000 the fused kernel's top-T mode's, with and without masks);
      the solve bit for bit under every block size of its sweep at kitti
-     and the bench point, and the score kernel at N=50,000, held as in
-     phase 3 there and at the SP shard's 25,000 points;
+     (phases 3 and 5 at the bench and 3DMatch points), and the score kernel
+     at N=50,000, held as in phase 3 there and at the SP shard's 25,000
+     points;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
@@ -206,6 +209,23 @@ def solve_plan_str(batch, K):
 
     plan = ksolve.solve_plan(batch, K, ksolve.sm_count(torch.device("cuda", 0)))
     return f"{plan_str(plan)}, {plan.blocks} blocks"
+
+
+def hold_solve_plans(P, Q, triples, where):
+    """The solve under every block size of its sweep (`exp_small_kernels.
+    solve_plans`) bit for bit against `solve3_reference`. Returns the block
+    sizes."""
+    import torch
+
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+    from saccot_tpu_torch.scripts import exp_small_kernels as xsmall
+
+    want = ksolve.solve3_reference(P, Q, triples)
+    plans = xsmall.solve_plans(*triples.shape[:2])
+    for plan in plans:
+        check(all(torch.equal(x, y) for x, y in zip(ksolve._solve(P, Q, triples, plan), want)),
+              f"solve3 ({plan_str(plan)}) at {where} differs from solve3_reference")
+    return [plan.threads for plan in plans]
 
 
 def hold_anchor(P, Q, anchors, B, T, tau, sep, where, mask=None, anchor_mask=None):
@@ -1627,9 +1647,12 @@ def main():
     r9, t3 = ksolve.solve3(P, Q, triples)
     r9_ref, t3_ref = ksolve.solve3_reference(P, Q, triples)
     # Solve bit for bit: the kernel spells every operation as an explicitly
-    # rounded one, in the plain version's order.
+    # rounded one, in the plain version's order, under every block size.
     err = max((r9 - r9_ref).abs().max().item(), (t3 - t3_ref).abs().max().item())
     check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref), f"solve3: r9/t3 differ by {err}")
+    threads = hold_solve_plans(P, Q, triples, "the bench point")
+    print(f"  solve3 at the bench point: {solve_plan_str(128, triples.shape[1])}; bit for bit "
+          f"in blocks of {threads}", flush=True)
     row("solve3", "saccot_tpu_torch/csrc/solve3.cu", "saccot_tpu/kernels/solve3.py:73", err,
         time_ms(lambda: ksolve.solve3(P, Q, triples)),
         time_ms(lambda: ksolve.solve3_reference(P, Q, triples)), "solve3",
@@ -1695,6 +1718,9 @@ def main():
     hold_anchor(P3, Q3, anc3, tdm.neighbors_per_anchor, 4, tdm.compat_tau, tdm.min_separation,
                 "the 3DMatch point")
     pool3 = tri_mod.triangle_pool_from_points(P3, Q3, deg3, tdm, impl="plain")
+    threads = hold_solve_plans(P3, Q3, pool3.triples, "the 3DMatch point")
+    print(f"  solve3 at the 3DMatch point: {solve_plan_str(*pool3.triples.shape[:2])}; bit for "
+          f"bit in blocks of {threads}", flush=True)
     hold_score(*ksolve.solve3_reference(P3, Q3, pool3.triples), P3, Q3, tdm.inlier_tau,
                "the 3DMatch point")
     print(f"phase 5 ok: 3DMatch recall kernels {rec_k:.4f}, plain {rec_p:.4f}", flush=True)
@@ -1833,7 +1859,7 @@ def main():
     # Solve and score at N=50,000 (the TPU streamed the solve above its VMEM
     # cap; the direct-index kernels take any N), score's tolerances as in
     # phase 3. The solve (row 8) bit for bit under every block size of the
-    # sweep, here and at the bench point.
+    # sweep, here (the bench and 3DMatch points in phases 3 and 5).
     kpool = tri_mod.triangle_pool_from_points(PK, QK, deg_ref, kp, impl="plain")
     ktrip = kpool.triples
     r9, t3 = ksolve.solve3(PK, QK, ktrip)
@@ -1841,13 +1867,9 @@ def main():
     err = max((r9 - r9_ref).abs().max().item(), (t3 - t3_ref).abs().max().item())
     check(torch.equal(r9, r9_ref) and torch.equal(t3, t3_ref),
           f"solve3 at N=50000: r9/t3 differ by {err}")
-    for Ps, Qs, trip, where in ((PK, QK, ktrip, "kitti"), (P, Q, triples, "the bench point")):
-        want = ksolve.solve3_reference(Ps, Qs, trip)
-        for plan in xsmall.solve_plans(*trip.shape[:2]):
-            check(all(torch.equal(x, y) for x, y in zip(ksolve._solve(Ps, Qs, trip, plan), want)),
-                  f"solve3 ({plan_str(plan)}) at {where} differs from solve3_reference")
-    print(f"  solve3: bit-identical to solve3_reference in blocks of "
-          f"{list(xsmall.SOLVE_THREADS)} threads at kitti and the bench point", flush=True)
+    threads = hold_solve_plans(PK, QK, ktrip, "kitti")
+    print(f"  solve3 at kitti: {solve_plan_str(*ktrip.shape[:2])}; bit-identical to "
+          f"solve3_reference in blocks of {threads}", flush=True)
     row("solve3_large_n", "saccot_tpu_torch/csrc/solve3.cu",
         "saccot_tpu/kernels/solve3.py:124", err,
         time_ms(lambda: ksolve.solve3(PK, QK, ktrip)),

@@ -27,12 +27,16 @@ from saccot_tpu_torch.kernels._common import (
 from saccot_tpu_torch.utils import debug
 
 MAX_THREADS = 256    # threads a block (the kernel's launch bound)
-# Blocks of THREADS wherever they cover the card's SMs (row 3's form at the
-# bench point); FEW_THREADS where they would leave SMs idle (the kitti
-# point's 2 x 2,048 hypotheses make 32 blocks of 128). Measured on an H100
-# over {32, 64, 128, 256} (`scripts/exp_small_kernels.py`; PERF.md lists the
-# readings, with those of a form of four lanes a hypothesis, which lost).
-THREADS = 128
+# Blocks of THREADS wherever they cover the card's SMs, of MID_THREADS where
+# only those do, of FEW_THREADS where neither does (the kitti point's
+# 2 x 2,048 hypotheses make 16 blocks of 256 and 32 of 128). Measured on an
+# H100 over {32, 64, 128, 256} (`scripts/exp_small_kernels.py`; PERF.md §6):
+# at the bench point (128 x 1,024) blocks of 256 read 0.00854 ms and blocks
+# of 128 0.00879 (medians of 10 pairs each), at the 3DMatch point (32 x
+# 2,048) 0.00544 and 0.00553; at kitti blocks of 64 read 0.0028 and of 256
+# 0.0040.
+THREADS = 256
+MID_THREADS = 128
 FEW_THREADS = 64
 
 
@@ -56,10 +60,13 @@ def make_solve_plan(batch: int, K: int, threads: int) -> SolvePlan:
 
 def solve_plan(batch: int, K: int, sms: int) -> SolvePlan:
     """The solve kernel's grid for `batch` x K hypotheses on a card of `sms`
-    SMs: blocks of THREADS, or of FEW_THREADS where those would be fewer
-    than the SMs."""
-    plan = make_solve_plan(batch, K, THREADS)
-    return plan if plan.blocks >= sms else make_solve_plan(batch, K, FEW_THREADS)
+    SMs: the largest blocks of THREADS and MID_THREADS that cover the SMs,
+    else blocks of FEW_THREADS."""
+    for threads in (THREADS, MID_THREADS):
+        plan = make_solve_plan(batch, K, threads)
+        if plan.blocks >= sms:
+            return plan
+    return make_solve_plan(batch, K, FEW_THREADS)
 
 
 def solve3_reference(
@@ -109,6 +116,9 @@ def _solve(P, Q, triples, plan: SolvePlan):
     if (plan != make_solve_plan(batch, K, plan.threads) or plan.threads % 32
             or not 32 <= plan.threads <= MAX_THREADS):
         raise ValueError(f"{plan} is no grid of {batch} x {K} hypotheses")
+    if max(3 * N, 9 * K) >= 2 ** 31:
+        raise ValueError(f"{batch} x {K} hypotheses over N={N} points overflow the "
+                         "kernel's 32-bit indices")
     P, Q = f32_points(P, batch, N, "P"), f32_points(Q, batch, N, "Q")
     triples = index_tensor(triples, (batch, K, 3), "triples")
     r9 = torch.empty((batch, 9, K), dtype=torch.float32, device=P.device)

@@ -1,7 +1,7 @@
 """Time the candidate top-T and solve kernels under every plan of their sweeps,
 beside the card's launch floor.
 
-    python -m saccot_tpu_torch.scripts.exp_small_kernels [reps]
+    python -m saccot_tpu_torch.scripts.exp_small_kernels [reps] [--solve-only]
 
 First the launch floor: the device ms of an empty kernel launched as one
 thread (`utils.profile.launch_floor_ms`). Then:
@@ -9,23 +9,31 @@ thread (`utils.profile.launch_floor_ms`). Then:
     in {1, 2, 4, 8}, on the streamed selections at the kitti point (2 x 512
     anchors, B=16, T=4, N=50,000) and its anchor shard (the first 256
     anchors); every W must give `candidate_plan`'s bits, and at N=3,000 the
-    fused kernel's top-T mode's, with and without masks;
-  - the solve (`csrc/solve3.cu`) in blocks of {32, 64, 128, 256} threads,
-    on the pools of the kitti (2 x 2,048 hypotheses, N=50,000), 3DMatch
-    (32 x 2,048, N=2,048) and bench (128 x 1,024, N=1,000) points; every
-    plan must give `solve3_reference`'s bits.
+    fused kernel's top-T mode's, with and without masks (left out with
+    --solve-only);
+  - the solve (`csrc/solve3.cu`) in blocks of {32, 64, 128, 256} threads on
+    the pools of the kitti (2 x 2,048 hypotheses, N=50,000), 3DMatch (32 x
+    2,048, N=2,048) and bench (128 x 1,024, N=1,000) points; every plan must
+    give `solve3_reference`'s bits; then, where blocks of 256 cover the
+    SMs, blocks of 128 against blocks of 256 in 10 pairs, alternating which
+    runs first.
 For each plan it prints the kernel's device ms (`utils.profile.
 kernel_device_ms` over `reps` calls), that over the floor, and the
 CUDA-event ms per call around `reps` calls issued back to back (the
-wrapper's host work included); then the registers ptxas reported for both
-kernels. Exits 1 at the first plan whose bits differ. Needs a CUDA device.
+wrapper's host work included); then what ptxas reported for both kernels
+(registers, shared memory, spills), the solve's SASS (`cuobjdump`: its
+instructions, FP32 and MUFU among them, and the instructions a hypothesis
+runs) and the SM clock. Exits 1 at the first plan whose bits differ. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
 
+import collections
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from saccot_tpu_torch.engine import triangles as tri_mod
@@ -33,6 +41,7 @@ from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels import compat as kcompat
 from saccot_tpu_torch.kernels import solve3 as ksolve
 from saccot_tpu_torch.kernels import triangles as ktri
+from saccot_tpu_torch.scripts.exp_compat_ops import sass_functions
 from saccot_tpu_torch.scripts.exp_degree_plan import back_to_back_ms
 from saccot_tpu_torch.utils.convert import (
     KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch,
@@ -42,6 +51,7 @@ from saccot_tpu_torch.utils.profile import kernel_device_ms, launch_floor_ms
 
 CANDIDATE_WARPS = (1, 2, 4, 8)
 SOLVE_THREADS = (32, 64, 128, 256)
+PAIRS = 10    # paired readings of blocks of 128 and of 256 at each point
 TOP_T = 4
 BENCH = SacCotParams(compat_tau=0.03, min_separation=0.05, inlier_tau=0.03, num_anchors=256,
                      neighbors_per_anchor=12, max_hypotheses=1024)
@@ -120,7 +130,7 @@ def sweep_solve(dev, reps: int, floor: float) -> bool:
         want = ksolve.solve3_reference(P, Q, triples)
         chosen = ksolve.solve_plan(batch, K, sms)
         print(f"solve3 at {name} ({batch} x {K} hypotheses, N={P.shape[1]}): solve_plan "
-              f"threads={chosen.threads}", flush=True)
+              f"threads={chosen.threads} ({sms} SMs)", flush=True)
         for plan in solve_plans(batch, K):
             if not all(torch.equal(x, y) for x, y in zip(ksolve._solve(P, Q, triples, plan),
                                                         want)):
@@ -129,11 +139,61 @@ def sweep_solve(dev, reps: int, floor: float) -> bool:
             print(f"  threads={plan.threads:3d} blocks={plan.blocks:5d}: "
                   f"{_timed(lambda: ksolve._solve(P, Q, triples, plan), reps, floor)}",
                   flush=True)
+        if ksolve.make_solve_plan(batch, K, ksolve.THREADS).blocks >= sms:
+            mid, big = (ksolve.make_solve_plan(batch, K, t)
+                        for t in (ksolve.MID_THREADS, ksolve.THREADS))
+            print_pairs(lambda: ksolve._solve(P, Q, triples, mid),
+                        lambda: ksolve._solve(P, Q, triples, big), reps)
     return True
+
+
+def print_pairs(mid, big, reps: int, pairs: int = PAIRS) -> None:
+    """Blocks of MID_THREADS against blocks of THREADS: device ms of each
+    (`kernel_device_ms` over `reps` calls) in `pairs` pairs, which side runs
+    first alternating; each side's median and quartiles, and the pairs
+    each wins."""
+    ms = {ksolve.MID_THREADS: [], ksolve.THREADS: []}
+    for i in range(pairs):
+        order = ((ksolve.MID_THREADS, mid), (ksolve.THREADS, big))
+        for threads, fn in order if i % 2 == 0 else order[::-1]:
+            ms[threads].append(kernel_device_ms(fn, reps))
+    wins = sum(b < m for m, b in zip(ms[ksolve.MID_THREADS], ms[ksolve.THREADS]))
+    stats = {threads: [round(float(q), 5) for q in np.quantile(v, [0.25, 0.5, 0.75])]
+             for threads, v in ms.items()}
+    print(f"  paired, {pairs} pairs: quartile/median/quartile ms by threads a block {stats}; "
+          f"blocks of {ksolve.THREADS} lower in {wins}", flush=True)
+
+
+def print_solve_sass() -> None:
+    """The solve kernel as compiled: instructions, FP32 (F*) and MUFU among
+    them, and the instructions a hypothesis runs, from entry to the last
+    EXIT (the roots' and reciprocals' slow paths, never taken here, sit
+    after it)."""
+    for fn, instrs in sorted(sass_functions("solve3_kernel").items()):
+        ops = collections.Counter(op for _, op, _ in instrs)
+        fp32 = sum(v for op, v in ops.items() if op.startswith("F"))
+        mufu = sum(v for op, v in ops.items() if op.startswith("MUFU"))
+        path = 1 + max(i for i, (_, op, _) in enumerate(instrs) if op == "EXIT")
+        print(f"  sass solve3: {sum(ops.values())} instructions, {fp32} FP32, {mufu} MUFU; a "
+              f"hypothesis {path}; top {ops.most_common(10)}", flush=True)
+
+
+def sm_clock_mhz(cycles: int = 2_000_000) -> float:
+    """The SM clock while the card is busy: `torch.cuda._sleep(cycles)` (a
+    kernel that spins for `cycles` clocks) over its CUDA-event time."""
+    torch.cuda._sleep(cycles)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    stop.synchronize()
+    return cycles / (start.elapsed_time(stop) * 1e3)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    solve_only = "--solve-only" in argv
+    argv = [a for a in argv if a != "--solve-only"]
     reps = int(argv[0]) if argv else 10
     if not torch.cuda.is_available():
         print("exp_small_kernels: no CUDA device", file=sys.stderr)
@@ -147,7 +207,7 @@ def main(argv=None) -> int:
     floors = [launch_floor_ms(reps) for _ in range(3)]
     floor = min(floors)
     print(f"launch floor (an empty kernel, one thread): device {floors} ms", flush=True)
-    if not (sweep_candidates(dev, reps, floor) and sweep_solve(dev, reps, floor)):
+    if not ((solve_only or sweep_candidates(dev, reps, floor)) and sweep_solve(dev, reps, floor)):
         return 1
     source = None
     for line in _build.build_log.splitlines():
@@ -155,6 +215,9 @@ def main(argv=None) -> int:
         if source in ("candidate_topt.cu", "solve3.cu") and (
                 "registers" in line or "stack frame" in line or "Compiling entry" in line):
             print(f"  ptxas ({source}):", line.split("ptxas info    :")[-1].strip()[:160])
+    print_solve_sass()
+    print(f"SM clock (a spin of 2e6 cycles over its event time): "
+          f"{[round(sm_clock_mhz(), 1) for _ in range(3)]} MHz", flush=True)
     return 0
 
 

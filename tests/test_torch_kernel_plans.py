@@ -7,7 +7,8 @@ warp each) a block of the fused anchor kernel holds; `degree_plan` chooses
 the rows a thread of the two-sided degree loop (`compat_degrees.cu`,
 `ring_degrees.cu`, `compat_ops.cu`) and splits its column segments;
 `candidate_plan` chooses the anchors (one warp each) a block of the
-candidate top-T holds; `solve_plan` the threads a block of the solve. All are pure Python and are checked here. The kernels themselves are held to their
+candidate top-T holds; `solve_plan` the threads a block of the solve. All
+are pure Python and are checked here. The kernels themselves are held to their
 plain versions on the card (skipped here: a CUDA kernel has no CPU mode).
 """
 
@@ -177,44 +178,90 @@ def test_candidate_plan_matches_the_kernel_source():
 # -- solve_plan ---------------------------------------------------------------------
 
 # (batch, K): the kitti point, the 3DMatch point, the bench point, a TP rank's
-# share of the bench point, ragged and tiny shapes.
-SOLVE_SHAPES = [(2, 2048), (32, 2048), (128, 1024), (128, 512), (3, 257), (1, 1), (2, 0)]
+# share of the bench point, the slam configuration (13 edges of K=512), ragged
+# and tiny shapes, K below a block.
+SOLVE_SHAPES = [(2, 2048), (32, 2048), (128, 1024), (128, 512), (13, 512), (3, 257), (1, 1),
+                (2, 0), (1, 5000), (1, 100), (7, 33)]
 
 
 @pytest.mark.parametrize("shape", SOLVE_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 def test_solve_plan_covers_every_hypothesis_once(shape, sms):
+    """`solve_plan` covers every hypothesis once, a thread each, in the
+    largest blocks of THREADS and MID_THREADS that cover the SMs, else of
+    FEW_THREADS."""
     batch, K = shape
     plan = ksolve.solve_plan(batch, K, sms)
-    assert plan.threads in (ksolve.THREADS, ksolve.FEW_THREADS)
+    assert plan.threads in (ksolve.THREADS, ksolve.MID_THREADS, ksolve.FEW_THREADS)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= ksolve.MAX_THREADS
     assert plan.tiles * plan.threads >= K > (plan.tiles - 1) * plan.threads or K == 0
     assert plan.blocks == plan.tiles * batch
     assert plan == ksolve.make_solve_plan(batch, K, plan.threads)
+    covers = [t for t in (ksolve.THREADS, ksolve.MID_THREADS)
+              if ksolve.make_solve_plan(batch, K, t).blocks >= sms]
+    assert plan.threads == (covers[0] if covers else ksolve.FEW_THREADS)
 
 
-@pytest.mark.parametrize("shape", [(128, 1024), (128, 512), (32, 2048), (64, 2048)],
+@pytest.mark.parametrize("shape", [(16, 2048), (32, 1024), (64, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_solve_plan_keeps_blocks_of_128_where_they_cover_the_sms(shape):
-    """The bench point's 1.3e5 hypotheses, a TP rank's half of them and the
-    3DMatch point keep row 3's form, blocks of 128."""
+    """Where blocks of 256 would be fewer than the SMs and blocks of 128
+    cover them, the plan keeps row 3's blocks of 128."""
+    assert ksolve.make_solve_plan(*shape, ksolve.THREADS).blocks < H100_SMS
     plan = ksolve.solve_plan(*shape, H100_SMS)
-    assert plan.threads == ksolve.THREADS == 128
+    assert plan.threads == ksolve.MID_THREADS == 128
     assert plan.blocks >= H100_SMS
 
 
 def test_solve_plan_at_few_hypotheses():
     """Where blocks of 128 would be fewer than the SMs (the kitti point's
-    2 x 2,048 hypotheses make 32), the plan takes blocks of FEW_THREADS."""
-    assert ksolve.make_solve_plan(2, 2048, ksolve.THREADS).blocks == 32
+    2 x 2,048 hypotheses make 32), the plan takes blocks of FEW_THREADS; so
+    does the slam configuration (13 x 512)."""
+    assert ksolve.make_solve_plan(2, 2048, ksolve.MID_THREADS).blocks == 32
     plan = ksolve.solve_plan(2, 2048, H100_SMS)
     assert plan.threads == ksolve.FEW_THREADS == 64 and plan.blocks == 64
+    assert ksolve.solve_plan(13, 512, H100_SMS).threads == ksolve.FEW_THREADS
+
+
+@pytest.mark.parametrize("shape", [(128, 1024), (32, 2048), (128, 512)],
+                         ids=["bench", "3dmatch", "tp_slice"])
+def test_solve_plan_takes_blocks_of_256_where_they_cover_the_sms(shape):
+    """The bench and 3DMatch points, and a TP rank's half of the bench
+    point, take blocks of 256: at the first two they were lower than blocks
+    of 128."""
+    plan = ksolve.solve_plan(*shape, H100_SMS)
+    assert plan.threads == ksolve.THREADS == 256
+    assert plan.blocks >= H100_SMS
 
 
 def test_solve_plan_matches_the_kernel_source():
     src = (CSRC / "solve3.cu").read_text()
     assert _csrc_int("kMaxThreads", "solve3.cu") == ksolve.MAX_THREADS
     assert "solve3_kernel<<<grid, threads," in src
+    # The kernel runs the one fit, and the fit runs horn.cuh's quaternion.
+    assert src.count("fit3(p, q, r, t);") == 1
+    assert "saccot::quaternion_from_cross_covariance(h, qv);" in src
+    horn = (CSRC / "horn.cuh").read_text()
+    assert "void quaternion_from_cross_covariance(const float h[9], float q[4])" in horn
+    assert horn.count("power_step(A);") == 8
+
+
+def test_solve_wrapper_refuses_plans_of_another_shape():
+    """`_solve` raises on a plan that is no grid of the shape, and on a
+    cloud whose row offsets outgrow the kernel's 32-bit indices, before any
+    launch (so here, on CPU tensors, too)."""
+    P = torch.zeros(2, 10, 3)
+    tri = torch.zeros(2, 300, 3, dtype=torch.int64)
+    for plan in (ksolve.make_solve_plan(2, 400, 128),
+                 ksolve.make_solve_plan(3, 300, 128),
+                 ksolve.make_solve_plan(2, 300, 512),
+                 ksolve.make_solve_plan(2, 300, 100),
+                 dataclasses.replace(ksolve.make_solve_plan(2, 300, 64), tiles=4)):
+        with pytest.raises(ValueError, match="no grid"):
+            ksolve._solve(P, P, tri, plan)
+    big = torch.zeros(1, 1, 3).expand(1, 2 ** 30, 3)     # 3 N > 2^31, no storage
+    with pytest.raises(ValueError, match="32-bit"):
+        ksolve._solve(big, big, tri[:1], ksolve.make_solve_plan(1, 300, 128))
 
 
 def test_small_kernel_sweep_names_grids_the_kernels_run():
@@ -625,7 +672,8 @@ def solve_case(batch, n, k, device, seed=0):
 
 @needs_cuda
 @pytest.mark.parametrize("threads", [32, 64, 128, 256])
-@pytest.mark.parametrize("shape", [(2, 3000, 2048), (3, 1000, 257)], ids=["kitti_k", "ragged"])
+@pytest.mark.parametrize("shape", [(2, 3000, 2048), (3, 1000, 257), (1, 500, 40)],
+                         ids=["kitti_k", "ragged", "below_a_block"])
 def test_solve_every_plan_equals_plain_on_card(shape, threads):
     """Every block size gives the plain version's bits: each operation is
     rounded on its own, in the plain order, on both sides."""

@@ -121,8 +121,7 @@ def test_solve3_kernel_matches_plain_on_card(case):
     P, Q, tri = (x.cuda() for x in _t(case, "P", "Q", "triples"))
     got = ksolve.solve3(P, Q, tri)
     ref = ksolve.solve3_reference(P, Q, tri)
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @needs_cuda
