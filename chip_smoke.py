@@ -70,7 +70,11 @@ Phases (any failure exits non-zero before the result lines are printed):
      NCCL with a card per rank when there are two cards, else gloo on the one
      card): DP over pairs and TP over hypotheses at the bench point, SP with
      the ring at the kitti configuration, SP without it at the 3DMatch point,
-     each held to the single-rank runs of phases 4, 5 and 7; which
+     each held to the single-rank runs of phases 4, 5 and 7; the per-pair
+     forms `register_pair_tp` and `register_pair_sp` on one pair of the TP
+     and the 3DMatch SP batch, each field the refine does not reach bit
+     for bit the batch forms' rows and R, t, T within 1e-5 (the refine's
+     torch sums add in an order set by the batch); which
      collectives gloo takes on CUDA tensors; each rank's launch counts;
  10. the degree loop's per-operation attribution (`compat_ops.cu`, the TPU
      script scripts/exp_compat_ops.py): each of its five modes in both forms
@@ -138,7 +142,14 @@ Phases (any failure exits non-zero before the result lines are printed):
      (d) `utils.debug.nan_guard`: a clean fast batch has the unguarded
      bits, and a NaN point named by the pool's triples raises
      FloatingPointError naming the solve on the kernel and the plain
-     route; one {"phase14": {...}} line of the readings.
+     route; one {"phase14": {...}} line of the readings;
+ 15. the per-stage routes: `register_batch` at the bench point, fast and
+     exact, once for each single-stage mix (one of compat_impl, pool_impl,
+     solve_impl and score_impl "plain", the rest "kernel"): recall >= 0.98,
+     the plain stage launching no kernel and the others theirs, each stage
+     held to the version the mix names on the mix's own inputs, and the
+     solve_impl="plain" mix bit for bit the all-kernel T of phase 4; B = 40
+     refused by the pool's kernel and run by the plain pool.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
 (`bound_ms` of the row's model in `saccot_tpu_torch.evaluation.roofline`),
@@ -1445,6 +1456,115 @@ def phase14(dev, rows, card, fast, exact, P, Q):
     print(json.dumps({"phase14": out}), flush=True)
     print(f"phase 14 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
+# -- phase 15: one stage by its plain version, the rest by their kernels ------
+
+def staged_mix(P, Q, params, routes, where):
+    """One batch stage by stage, each stage by the route `routes` names, on
+    the inputs the earlier stages of that mix hand it; each stage's kernel
+    held to its plain version on those inputs at phase 3's tolerances
+    (degrees rtol 1e-5 / atol 1e-3, the anchor kernel as `hold_anchor`, the
+    solve bit for bit, counts as `hold_score`). Returns R, t and the inliers
+    the refine gives."""
+    import torch
+
+    from saccot_tpu_torch.engine import sac_cot
+    from saccot_tpu_torch.engine import triangles as tri_mod
+    from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import score as kscore
+    from saccot_tpu_torch.kernels import solve3 as ksolve
+    from saccot_tpu_torch.kernels import triangles as ktri
+
+    kernel = {stage: route == "kernel" for stage, route in routes.items()}
+    deg_k = kcompat.degrees(P, Q, P, Q, params)
+    deg_p = kcompat.degrees_reference(P, Q, P, Q, params)
+    torch.testing.assert_close(deg_k, deg_p, rtol=1e-5, atol=1e-3)
+    deg = deg_k if kernel["compat"] else deg_p
+    N = P.shape[1]
+    A, B = min(params.num_anchors, N), min(params.neighbors_per_anchor, N - 1)
+    _, anchors = ktri.topk_stable(deg, A)
+    hold_anchor(P, Q, anchors, B, 4, params.compat_tau, params.min_separation, where)
+    pool = tri_mod.triangle_pool_from_points(P, Q, deg, params, impl=routes["pool"])
+    r9, t3 = ksolve.solve3(P, Q, pool.triples)
+    r9_p, t3_p = ksolve.solve3_reference(P, Q, pool.triples)
+    check(torch.equal(r9, r9_p) and torch.equal(t3, t3_p), f"solve3 at {where}: r9/t3 differ")
+    hold_score(r9, t3, P, Q, params.inlier_tau, where)
+    score_fn = kscore.score_hypotheses if kernel["score"] else kscore.score_hypotheses_reference
+    scores = score_fn(r9, t3, P, Q, params.inlier_tau, mode=params.scoring)[0]
+    _, R, t = sac_cot.best_hypothesis(scores, pool.valid, r9, t3)
+    ones = torch.ones(P.shape[:2], device=P.device)
+    return sac_cot.refine(P, Q, R, t, params, ones)
+
+
+def phase15(dev, rows, fast, exact, P, Q, T_gt, results):
+    """`register_batch` at the bench point (fast and exact) once for each
+    single-stage mix: one of compat_impl, pool_impl, solve_impl and
+    score_impl "plain", the other three "kernel". Each mix registers at
+    recall >= 0.98; its plain stage launches no kernel and its kernel
+    stages launch theirs; each stage is held to the version the mix names
+    on the mix's own inputs (`staged_mix`, bit for bit the entry point's
+    R, t and inliers); the solve_impl="plain" mix gives phase 4's
+    all-kernel T bit for bit (row 3 equals its plain version bit for bit).
+    Then B > 32 on the card: the pool's kernel refuses it, the plain pool
+    under kernel degrees, solve and score runs it."""
+    import torch
+
+    from saccot_tpu_torch import register_batch
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.utils.convert import recall
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for name, params in (("fast", fast), ("exact", exact)):
+        # The launch counter of each stage's kernel at the bench point (row 2
+        # in the mode the configuration takes).
+        counters = {"compat": "compat_degrees",
+                    "pool": ("anchor_topb_topt" if params.per_anchor_candidates
+                             else "anchor_topb_candidates"),
+                    "solve": "solve3", "score": "score"}
+        stages = tuple(counters)
+        for plain in stages:
+            routes = {s: "plain" if s == plain else "kernel" for s in stages}
+            mix = {f"{s}_impl": r for s, r in routes.items()}
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            res = register_batch(P, Q, params, **mix)
+            torch.cuda.synchronize()
+            launched = _build.launches()
+            total = {k: total[k] + v for k, v in launched.items()}
+            where = f"the bench point, {name}, {plain}_impl='plain'"
+            check(bool(torch.isfinite(res.T).all()), f"{where}: non-finite transforms")
+            rec = recall(res, T_gt, 5.0, 0.05)
+            check(rec >= 0.98, f"{where}: recall {rec} < 0.98")
+            for s in stages:
+                n = launched[counters[s]]
+                check((n == 0) if s == plain else (n > 0),
+                      f"{where}: {counters[s]} launched {n} times")
+            R, t, inl = staged_mix(P, Q, params, routes, where)
+            check(torch.equal(R, res.R) and torch.equal(t, res.t) and torch.equal(inl, res.inliers),
+                  f"{where}: the staged mix differs from register_batch")
+            same = (res.T == results[name].T).flatten(1).all(dim=1)
+            if plain == "solve":
+                check(bool(same.all()), f"{where}: T differs from the all-kernel run")
+            print(f"  {name}, {plain}_impl='plain': recall {rec:.4f}, T bit for bit the "
+                  f"all-kernel run's on {int(same.sum())} of {len(same)} pairs, launches "
+                  + ", ".join(f"{counters[s]} {launched[counters[s]]}" for s in stages),
+                  flush=True)
+    wide = dataclasses.replace(exact, neighbors_per_anchor=40)
+    try:
+        register_batch(P[:2], Q[:2], wide)
+        check(False, "B=40: the pool's kernel did not refuse")
+    except NotImplementedError:
+        pass
+    res = register_batch(P[:2], Q[:2], wide, pool_impl="plain")
+    check(bool(torch.isfinite(res.T).all()), "B=40 with the plain pool: non-finite transforms")
+    print("  B=40: the pool's kernel refuses it (NotImplementedError); the plain pool under "
+          "the other stages' kernels registers it", flush=True)
+    for r in rows:
+        if r["name"] in ("compat_degrees", "anchor_topb_candidates", "anchor_topb_topt",
+                         "solve3", "score"):
+            r["phase15_launches"] = total[r["name"]]
+    print(f"phase 15 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
 
 def gloo_cuda_probe(dev):
     """Which collectives a gloo group runs on CUDA tensors itself (True) or
@@ -1469,6 +1589,11 @@ def gloo_cuda_probe(dev):
     return out
 
 
+# The pairs phase 9 also registers alone by the per-pair forms: one of the
+# TP batch (the bench point) and one of the SP batch (the 3DMatch point).
+PAIR_TP, PAIR_SP = 5, 7
+
+
 def phase9_rank(fast, exact, kitti, tdm):
     """One rank of phase 9 (spawned by `run_ranks`, which has already joined
     the process group): DP, TP and SP runs; results and launch counts."""
@@ -1479,7 +1604,9 @@ def phase9_rank(fast, exact, kitti, tdm):
 
     from saccot_tpu_torch.dist.mesh import axis_group, make_mesh
     from saccot_tpu_torch.dist.sweep import make_sweep_fn
-    from saccot_tpu_torch.engine.sac_cot import register_batch_sp, register_batch_tp
+    from saccot_tpu_torch.engine.sac_cot import (
+        register_batch_sp, register_batch_tp, register_pair_sp, register_pair_tp,
+    )
     from saccot_tpu_torch.kernels import _build
     from saccot_tpu_torch.utils.convert import KITTI_SEED, kitti_problem_batch, problem_batch
 
@@ -1497,6 +1624,7 @@ def phase9_rank(fast, exact, kitti, tdm):
         out[f"dp_{name}"] = make_sweep_fn(dp, params)(P, Q)
     tp = make_mesh(pairs=1, hyp=2)
     out["tp"] = register_batch_tp(P, Q, fast, axis_group(tp, "hyp"))
+    out["pair_tp"] = register_pair_tp(P[PAIR_TP], Q[PAIR_TP], fast, axis_group(tp, "hyp"))
     sp = make_mesh(pairs=1, corr=2)
     g, r = axis_group(sp, "corr"), sp.get_local_rank("corr")
 
@@ -1526,6 +1654,7 @@ def phase9_rank(fast, exact, kitti, tdm):
     out["sp_3dm"] = register_batch_sp(P3, Q3, tdm, g)
     torch.cuda.synchronize()
     out["sp_3dm_launches"] = _build.launches()
+    out["pair_sp"] = register_pair_sp(P3[PAIR_SP], Q3[PAIR_SP], tdm, g)
     return out
 
 
@@ -1552,7 +1681,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    from saccot_tpu_torch import SacCotParams, register_batch
+    from saccot_tpu_torch import SacCotParams, register_batch, register_pair
     from saccot_tpu_torch.engine import triangles as tri_mod
     from saccot_tpu_torch.kernels import _build
     from saccot_tpu_torch.kernels import compat as kcompat
@@ -2109,6 +2238,34 @@ def main():
         check(r["sp_3dm_launches"]["compat_degrees_direct"] == 1,
               "SP 3DMatch: the direct-form degree route was not taken")
     print(f"  (d) SP 3DMatch: recall {rec:.4f} (one rank {rec_k:.4f})", flush=True)
+    # (e) The per-pair forms: register_pair_tp on pair PAIR_TP of the TP
+    # batch, register_pair_sp on pair PAIR_SP of the 3DMatch SP batch. Each
+    # field the refine does not reach (inliers and their count, the best
+    # score, the pool's count, success) bit for bit the batch form's row; R,
+    # t and T within 1e-5, since the refine's torch sums add in an order set
+    # by the batch (on the card a batch of 1 or 2 differs from one of 16 or
+    # more, within 1.2e-7 at these points; ROADMAP queue 3). TP holds one
+    # rank's bits, so register_pair_tp equals register_pair on one rank.
+    one_tp = register_pair(P[PAIR_TP], Q[PAIR_TP], fast)
+    refined = ("R", "t", "T")
+    gaps = []
+    for r in ranks:
+        for form, batch_res, b in (("pair_tp", r["tp"], PAIR_TP), ("pair_sp", r["sp_3dm"], PAIR_SP)):
+            got = r[form]
+            for f, x, y in zip(got._fields, got, batch_res):
+                if f in refined:
+                    gaps.append(float(np.abs(x - y[b]).max()))
+                    check(gaps[-1] <= 1e-5, f"{form} on rank {r['rank']}: {f} {gaps[-1]} from "
+                                            f"the batch form's row {b}")
+                else:
+                    check(np.array_equal(x, y[b]),
+                          f"{form} on rank {r['rank']}: {f} differs from the batch form's row {b}")
+        check(all(np.array_equal(x, y.cpu().numpy()) for x, y in zip(r["pair_tp"], one_tp)),
+              f"pair_tp on rank {r['rank']}: differs from register_pair on one rank")
+    print(f"  (e) register_pair_tp (pair {PAIR_TP}) and register_pair_sp (pair {PAIR_SP}): "
+          f"every field the refine does not reach bit for bit the batch forms' rows, R/t/T "
+          f"within {max(gaps):.3g}; register_pair_tp bit for bit register_pair on one rank",
+          flush=True)
     dist_launches = {k: sum(r[f"{case}_launches"][k] for r in ranks for case in
                             ("sp_ring", "sp_3dm")) for k in _build.LAUNCHES}
     print(f"  launches summed over ranks (SP runs): {dist_launches}", flush=True)
@@ -2211,6 +2368,9 @@ def main():
 
     # -- phase 14: the oracle, the stage timer and roofline, the trace, the guard
     phase14(dev, rows, card, fast, exact, P, Q)
+
+    # -- phase 15: one stage by its plain version, the rest by their kernels
+    phase15(dev, rows, fast, exact, P, Q, T_gt, results)
 
     for r in rows:
         r["device_over_floor"] = r["device_ms"] / floor

@@ -44,6 +44,7 @@ __version__ = "0.1.0"
 
 from saccot_tpu_torch.engine.sac_cot import (  # noqa: F401
     RegistrationResult, register_batch, register_batch_sp, register_batch_tp, register_pair,
+    register_pair_sp, register_pair_tp,
 )
 from saccot_tpu_torch.features.pipeline import (  # noqa: F401
     PipelineConfig, register_clouds, register_clouds_batch,

@@ -5,9 +5,12 @@
 spawns `world_size` processes with the `spawn` start method (the only one
 that works once the parent has touched CUDA), points them at a free
 localhost port (MASTER_ADDR / MASTER_PORT), joins each to the process group
-(`dist.mesh.init_distributed(backend)`), calls `fn(*args)` and returns the
-ranks' results in rank order, with every tensor in them turned into a NumPy
-array. `fn` must be importable by name (a module-level function).
+(`dist.mesh.init_distributed(backend=backend)`), calls `fn(*args)` and
+returns the ranks' results in rank order, with every tensor in them turned
+into a NumPy array. `fn` must be importable by name (a module-level
+function). With `explicit_init=True` the ranks join by `init_distributed`'s
+explicit arguments (the address, world size and rank) instead, with the
+rank variables removed from their environment.
 
 A rank that raises fails the whole call with that rank's traceback; a rank
 that dies without a result, or a call that outlives `timeout` seconds, fails
@@ -29,6 +32,9 @@ from typing import Any, List, Optional
 
 import torch
 
+# The env:// variables of a rank.
+RANK_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+
 
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
@@ -49,17 +55,22 @@ def _to_host(x: Any) -> Any:
     return x
 
 
-def _rank_main(rank: int, world_size: int, backend: Optional[str], port: int, fn, args,
-               results) -> None:
+def _rank_main(rank: int, world_size: int, backend: Optional[str], port: int,
+               explicit_init: bool, fn, args, results) -> None:
     import torch.distributed as dist
 
     from saccot_tpu_torch.dist.mesh import init_distributed
 
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world_size))
     try:
-        init_distributed(backend)
+        if explicit_init:
+            for name in RANK_VARS:
+                os.environ.pop(name, None)
+            init_distributed(f"127.0.0.1:{port}", world_size, rank, backend=backend)
+        else:
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                              WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
+                              LOCAL_WORLD_SIZE=str(world_size))
+            init_distributed(backend=backend)
         out = _to_host(fn(*args))
     except Exception:  # the rank's boundary: report the traceback to the parent
         results.put((rank, False, traceback.format_exc()))
@@ -69,10 +80,12 @@ def _rank_main(rank: int, world_size: int, backend: Optional[str], port: int, fn
 
 
 def run_ranks(fn, world_size: int, backend: Optional[str], *args,
-              timeout: float = 600.0) -> List[Any]:
+              timeout: float = 600.0, explicit_init: bool = False) -> List[Any]:
     """`fn(*args)` on `world_size` spawned ranks; their results in rank order.
 
     backend: "nccl", "gloo", or None for `init_distributed`'s choice.
+    explicit_init: join by `init_distributed`'s arguments, not the
+    environment.
     """
     if torch.cuda.is_available():
         from saccot_tpu_torch.kernels import _build
@@ -82,7 +95,8 @@ def run_ranks(fn, world_size: int, backend: Optional[str], *args,
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
-                         args=(r, world_size, backend, port, fn, args, results))
+                         args=(r, world_size, backend, port, explicit_init, fn, args,
+                               results))
              for r in range(world_size)]
     for p in procs:
         p.start()

@@ -28,11 +28,20 @@ from torch.distributed.device_mesh import init_device_mesh
 AXES = ("pairs", "hyp", "corr")
 
 
-def init_distributed(backend: Optional[str] = None) -> Optional[str]:
-    """Join the process group named by the `env://` variables (MASTER_ADDR,
-    MASTER_PORT, RANK, WORLD_SIZE; LOCAL_RANK and LOCAL_WORLD_SIZE default to
-    RANK and WORLD_SIZE) and return its backend. A single process
-    (`WORLD_SIZE` unset or 1) joins nothing and returns None.
+def init_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+) -> Optional[str]:
+    """Join the process group and return its backend.
+
+    The rendezvous is `tcp://<coordinator_address>` ("host:port"), the world
+    size `num_processes` and this process's rank `process_id`, as the JAX
+    package's arguments name them. Each one not given is read from the
+    `env://` variables (MASTER_ADDR:MASTER_PORT, WORLD_SIZE, RANK; LOCAL_RANK
+    and LOCAL_WORLD_SIZE default to the rank and the world size). A single
+    process (a world size unset or 1) joins nothing and returns None.
 
     backend=None picks NCCL when every rank of this host has a card of its
     own (rank LOCAL_RANK takes card LOCAL_RANK), else gloo: CPU tensors, or
@@ -41,18 +50,19 @@ def init_distributed(backend: Optional[str] = None) -> Optional[str]:
     """
     if dist.is_initialized():
         return dist.get_backend()
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+    world = int(os.environ.get("WORLD_SIZE", "1")) if num_processes is None else num_processes
+    if world <= 1:
         return None
-    rank = int(os.environ["RANK"])
+    rank = int(os.environ["RANK"]) if process_id is None else process_id
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if backend is None:
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
         backend = "nccl" if cards >= local_world else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
-    dist.init_process_group(backend, init_method="env://", rank=rank,
-                            world_size=int(os.environ["WORLD_SIZE"]))
+    init_method = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
     return backend
 
 

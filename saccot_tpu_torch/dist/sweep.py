@@ -22,9 +22,14 @@ from saccot_tpu_torch.engine.sac_cot import RegistrationResult, register_batch_s
 from saccot_tpu_torch.utils.params import SacCotParams
 
 
-def make_sweep_fn(mesh, params: SacCotParams, impl: str = "kernel"):
+def make_sweep_fn(mesh, params: SacCotParams, impl: str = "kernel",
+                  compat_impl: Optional[str] = None, score_impl: Optional[str] = None,
+                  pool_impl: Optional[str] = None, solve_impl: Optional[str] = None):
     """A sweep over `mesh`: (P [B, N, 3], Q [B, N, 3], mask [B, N] or None)
-    -> RegistrationResult of [B, ...] fields, the same on every rank."""
+    -> RegistrationResult of [B, ...] fields, the same on every rank. The
+    routes are `engine.sac_cot.register_batch`'s."""
+    routes = dict(impl=impl, compat_impl=compat_impl, score_impl=score_impl,
+                  pool_impl=pool_impl, solve_impl=solve_impl)
     corr_group = axis_group(mesh, "corr")
     hyp_group = axis_group(mesh, "hyp")
     pairs_group = axis_group(mesh, "pairs")
@@ -44,7 +49,7 @@ def make_sweep_fn(mesh, params: SacCotParams, impl: str = "kernel"):
         res = register_batch_sp(
             P_all[rows, cols], Q_all[rows, cols], params, corr_group,
             mask_loc=None if mask_all is None else mask_all[rows, cols],
-            hyp_group=hyp_group, impl=impl,
+            hyp_group=hyp_group, **routes,
         )
         res = res._replace(inliers=all_gather(res.inliers, corr_group, dim=1))
         return RegistrationResult(*(all_gather(x, pairs_group, dim=0) for x in res))

@@ -32,7 +32,9 @@ from typing import NamedTuple, Optional, Sequence, Union
 import torch
 
 from saccot_tpu_torch.engine import compat as compat_mod
-from saccot_tpu_torch.engine.sac_cot import _stages, best_hypothesis, refine, register_pair
+from saccot_tpu_torch.engine.sac_cot import (
+    _routes, _stages, best_hypothesis, refine, register_pair,
+)
 from saccot_tpu_torch.engine.svd3 import transform_from_rt
 from saccot_tpu_torch.kernels.triangles import topk_stable
 from saccot_tpu_torch.utils.params import SacCotParams
@@ -145,7 +147,7 @@ def ransac_register_batch(
     """Classic 3-point RANSAC at a budget of params.max_hypotheses triples
     a pair. P, Q [batch, N, 3]; mask [batch, N]; seeds: one per pair (an int
     for all); u: the priority field [batch, K, N] in place of the draws."""
-    _, solve_fn, score_fn = _stages(impl)
+    _, solve_fn, score_fn = _stages(_routes(impl))
     P, Q, m, kmask = _prepare(P, Q, mask)
     batch, N, _ = P.shape
     K = params.max_hypotheses
@@ -168,7 +170,7 @@ def edge_guided_register_batch(
 ) -> BaselineResult:
     """Two-point compatibility-edge-guided sampling (the paper's middle
     ablation); arguments as `ransac_register_batch`."""
-    degrees_fn, solve_fn, score_fn = _stages(impl)
+    degrees_fn, solve_fn, score_fn = _stages(_routes(impl))
     P, Q, m, kmask = _prepare(P, Q, mask)
     batch, N, _ = P.shape
     if u is None:

@@ -39,6 +39,12 @@ def cross_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(cross_sq_distances(a, b))
 
 
+def pairwise_distances(x: torch.Tensor) -> torch.Tensor:
+    """Dense distance matrix [..., N, N] of points [..., N, 3], by direct
+    differences (the JAX function's Gram trick is a TPU layout)."""
+    return cross_distances(x, x)
+
+
 def pair_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise distance of point pairs [..., 3] -> [...] (same order)."""
     d = a - b

@@ -1,15 +1,20 @@
 """The SAC-COT estimator on PyTorch: batched correspondence-set registration.
 
-Port of `saccot_tpu/engine/sac_cot.py` (`register_batch` and
-`register_pair`). Per batch element: compatibility degrees -> triangle pool
--> 3-point solves -> hypothesis scores -> first-maximum argmax ->
-`refine_iters` weighted-Umeyama passes on the inlier set. The JAX
+Port of `saccot_tpu/engine/sac_cot.py`. Per batch element: compatibility
+degrees -> triangle pool -> 3-point solves -> hypothesis scores ->
+first-maximum argmax -> `refine_iters` weighted-Umeyama passes on the
+inlier set. The JAX
 package's `vmap` becomes the explicit leading batch axis of every tensor.
 
 `impl="kernel"` routes the four hot stages through the kernel wrappers
 (the CUDA kernels for CUDA tensors, their plain versions for CPU tensors),
 which pick their kernel by N (no cap); `impl="plain"` runs the plain
-PyTorch versions on any device.
+PyTorch versions on any device. `compat_impl`, `pool_impl`, `solve_impl`
+and `score_impl` set one stage's route each ("kernel" or "plain", `impl`
+where one is not given), as the JAX package's four selectors do: the stages
+hand each other tensors on the device they run on, so one stage can run by
+its plain version and the rest by their kernels. A kernel stage on a CUDA
+tensor launches its kernel or raises; it never falls back.
 
 The sharded bodies (`_register_pair`'s `corr_axis` / `hyp_axis` branches
 in the JAX package) run over `torch.distributed` groups:
@@ -23,6 +28,9 @@ in the JAX package) run over `torch.distributed` groups:
 - TP, `register_batch_tp` (and `hyp_group` under SP): each rank solves and
   scores K/d of the replicated pool; the champions are gathered in rank
   order, so the first-maximum tie-break of one rank holds.
+
+`register_pair_sp` and `register_pair_tp` are the per-pair forms of the
+JAX package's sharded bodies: a batch of one, returned without the axis.
 """
 
 from __future__ import annotations
@@ -54,13 +62,27 @@ class RegistrationResult(NamedTuple):
     success: torch.Tensor      # [batch] bool: at least one valid triangle existed
 
 
-def _stages(impl: str):
-    if impl == "kernel":
-        return compat_k.degrees, solve3_k.solve3, score_k.score_hypotheses
-    if impl == "plain":
-        return (compat_k.degrees_reference, solve3_k.solve3_reference,
-                score_k.score_hypotheses_reference)
-    raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+def _routes(impl: str, compat_impl: Optional[str] = None, pool_impl: Optional[str] = None,
+            solve_impl: Optional[str] = None, score_impl: Optional[str] = None) -> dict:
+    """Each stage's route, "kernel" or "plain": its own argument, else `impl`."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    routes = {}
+    for stage, route in (("compat", compat_impl), ("pool", pool_impl), ("solve", solve_impl),
+                         ("score", score_impl)):
+        route = impl if route is None else route
+        if route not in ("kernel", "plain"):
+            raise ValueError(f"{stage}_impl must be 'kernel' or 'plain', got {route!r}")
+        routes[stage] = route
+    return routes
+
+
+def _stages(routes: dict):
+    """The degree, solve and score functions, each by its route (`_routes`)."""
+    kernel = {stage: route == "kernel" for stage, route in routes.items()}
+    return (compat_k.degrees if kernel["compat"] else compat_k.degrees_reference,
+            solve3_k.solve3 if kernel["solve"] else solve3_k.solve3_reference,
+            score_k.score_hypotheses if kernel["score"] else score_k.score_hypotheses_reference)
 
 
 def best_hypothesis(
@@ -111,11 +133,17 @@ def _register_batch(
     impl: str,
     corr_group=None,
     hyp_group=None,
+    compat_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
 ) -> RegistrationResult:
     """The estimator body. `corr_group`: P, Q, mask are this rank's shard of
     the correspondence axis (SP); `hyp_group`: the pool is sliced over it
-    (TP). With neither, no collective runs."""
-    degrees_fn, solve_fn, score_fn = _stages(impl)
+    (TP). With neither, no collective runs. The `*_impl` routes default to
+    `impl`."""
+    routes = _routes(impl, compat_impl, pool_impl, solve_impl, score_impl)
+    degrees_fn, solve_fn, score_fn = _stages(routes)
     P = P.to(torch.float32)
     Q = Q.to(torch.float32)
     batch, n_loc, _ = P.shape
@@ -132,20 +160,21 @@ def _register_batch(
         P_full, Q_full = all_gather(P, corr_group, dim=1), all_gather(Q, corr_group, dim=1)
         kmask_full = None if kmask is None else all_gather(kmask, corr_group, dim=1)
         if params.ring_compat:
-            deg = degrees_ring(P, Q, params, corr_group, mask_loc=kmask, impl=impl)
+            deg = degrees_ring(P, Q, params, corr_group, mask_loc=kmask, impl=routes["compat"])
         else:
             deg = degrees_fn(P, Q, P_full, Q_full, params,
                              row_offset=group_rank(corr_group) * n_loc,
                              mask_rows=kmask, mask_cols=kmask_full, mxu=False)
         deg = all_gather(deg, corr_group, dim=1)
     N = P_full.shape[1]
-    if P.is_cuda and impl == "kernel" and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS:
+    if (P.is_cuda and routes["pool"] == "kernel"
+            and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS):
         raise NotImplementedError(
             f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernels hold the "
             "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
 
     pool = tri_mod.triangle_pool_from_points(P_full, Q_full, deg, params, mask=kmask_full,
-                                             impl=impl, anchor_group=corr_group)
+                                             impl=routes["pool"], anchor_group=corr_group)
     triples, hyp_valid = pool.triples, pool.valid
     if hyp_group is not None:
         d_h = group_size(hyp_group)
@@ -195,13 +224,27 @@ def register_batch(
     params: SacCotParams,
     mask: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
 ) -> RegistrationResult:
     """Register a batch of correspondence sets.
 
     P, Q: [batch, N, 3] matched source/target points (row n of P matches row
     n of Q); mask: optional [batch, N] validity of each correspondence.
+    impl: every stage's route, "kernel" or "plain"; compat_impl, score_impl,
+    pool_impl, solve_impl: one stage's route each, `impl` where None.
     """
-    return _register_batch(P, Q, params, mask, impl)
+    return _register_batch(P, Q, params, mask, impl, compat_impl=compat_impl,
+                           pool_impl=pool_impl, solve_impl=solve_impl, score_impl=score_impl)
+
+
+def _one_pair(register, P, Q, mask, *args, **kw) -> RegistrationResult:
+    """`register(P[None], Q[None], *args, mask[None], **kw)`: a batch of one
+    (the mask follows `args`), returned without the batch axis."""
+    res = register(P[None], Q[None], *args, None if mask is None else mask[None], **kw)
+    return RegistrationResult(*(x[0] for x in res))
 
 
 def register_pair(
@@ -210,12 +253,15 @@ def register_pair(
     params: SacCotParams,
     mask: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
 ) -> RegistrationResult:
     """Register one correspondence set P, Q [N, 3] (mask [N]): a batch of one,
     returned without the batch axis."""
-    res = register_batch(P[None], Q[None], params,
-                         mask=None if mask is None else mask[None], impl=impl)
-    return RegistrationResult(*(x[0] for x in res))
+    return _one_pair(register_batch, P, Q, mask, params, impl=impl, compat_impl=compat_impl,
+                     score_impl=score_impl, pool_impl=pool_impl, solve_impl=solve_impl)
 
 
 def register_batch_sp(
@@ -226,16 +272,22 @@ def register_batch_sp(
     mask_loc: Optional[torch.Tensor] = None,
     hyp_group=None,
     impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
 ) -> RegistrationResult:
     """Correspondence-sharded (SP) estimator, called on every rank of
     `corr_group` with its [batch, n_loc, 3] shard (rank r holds global
     correspondences r * n_loc ... (r + 1) * n_loc - 1).
 
     `inliers` is the local shard; every other field is global and the same
-    on every rank. `hyp_group` also shards the hypothesis pool (TP).
+    on every rank. `hyp_group` also shards the hypothesis pool (TP). The
+    routes are `register_batch`'s.
     """
     return _register_batch(P_loc, Q_loc, params, mask_loc, impl, corr_group=corr_group,
-                           hyp_group=hyp_group)
+                           hyp_group=hyp_group, compat_impl=compat_impl, pool_impl=pool_impl,
+                           solve_impl=solve_impl, score_impl=score_impl)
 
 
 def register_batch_tp(
@@ -245,9 +297,55 @@ def register_batch_tp(
     hyp_group,
     mask: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
 ) -> RegistrationResult:
     """Hypothesis-sharded (TP) estimator: every rank of `hyp_group` holds
     the whole batch, solves and scores its K/d slice of the pool, and the
     best hypothesis is reduced over the group. Every field is replicated.
+    The routes are `register_batch`'s.
     """
-    return _register_batch(P, Q, params, mask, impl, hyp_group=hyp_group)
+    return _register_batch(P, Q, params, mask, impl, hyp_group=hyp_group,
+                           compat_impl=compat_impl, pool_impl=pool_impl, solve_impl=solve_impl,
+                           score_impl=score_impl)
+
+
+def register_pair_sp(
+    P_loc: torch.Tensor,
+    Q_loc: torch.Tensor,
+    params: SacCotParams,
+    corr_group,
+    mask_loc: Optional[torch.Tensor] = None,
+    hyp_group=None,
+    impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
+) -> RegistrationResult:
+    """`register_batch_sp` on one pair: this rank's shard P_loc, Q_loc
+    [n_loc, 3] (mask_loc [n_loc]), returned without the batch axis."""
+    return _one_pair(register_batch_sp, P_loc, Q_loc, mask_loc, params, corr_group,
+                     hyp_group=hyp_group, impl=impl, compat_impl=compat_impl,
+                     score_impl=score_impl, pool_impl=pool_impl, solve_impl=solve_impl)
+
+
+def register_pair_tp(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    params: SacCotParams,
+    hyp_group,
+    mask: Optional[torch.Tensor] = None,
+    impl: str = "kernel",
+    compat_impl: Optional[str] = None,
+    score_impl: Optional[str] = None,
+    pool_impl: Optional[str] = None,
+    solve_impl: Optional[str] = None,
+) -> RegistrationResult:
+    """`register_batch_tp` on one pair P, Q [N, 3] (mask [N]), returned
+    without the batch axis."""
+    return _one_pair(register_batch_tp, P, Q, mask, params, hyp_group, impl=impl,
+                     compat_impl=compat_impl, score_impl=score_impl, pool_impl=pool_impl,
+                     solve_impl=solve_impl)

@@ -1,6 +1,9 @@
 """Batched weighted rigid alignment (Horn quaternion method) — PyTorch.
 
-Port of `saccot_tpu/engine/svd3.py` (its "quat" method). The quaternion
+Port of `saccot_tpu/engine/svd3.py`. The "quat" method (the default, and
+the only one the estimator and the refine take) is Horn's; "svd" is the
+reference's Procrustes cross-check, `torch.linalg.svd` of the jittered
+cross-covariance with a branchless reflection fix. The quaternion
 iteration runs in structure-of-arrays form over whatever batch shape its
 inputs share, in exactly the order of the JAX function and of the fused CUDA
 solve (`csrc/solve3.cu`). Sums over points are elementwise products and
@@ -114,15 +117,19 @@ def umeyama(
     q: torch.Tensor,
     w: Optional[torch.Tensor] = None,
     group=None,
+    method: str = "quat",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted rigid alignment, batched over leading dims.
 
     Minimises sum_i w_i |R p_i + t - q_i|^2. p, q: [..., M, 3]; w: [..., M]
     (default uniform). An all-zero weight row gives a finite rotation.
     `group`: the M axis is this rank's shard; the moments are summed over
-    the group, so every rank gets the global fit. Returns R [..., 3, 3],
-    t [..., 3].
+    the group, so every rank gets the global fit. method: "quat" (Horn's
+    iteration) or "svd" (Procrustes, for cross-checking). Returns
+    R [..., 3, 3], t [..., 3].
     """
+    if method not in ("quat", "svd"):
+        raise ValueError(f"method must be 'quat' or 'svd', got {method!r}")
     if w is None:
         w = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
     w = w.to(p.dtype)
@@ -135,14 +142,32 @@ def umeyama(
     H = [(wpc[..., a] * qc[..., c]).sum(dim=-1) for a in range(3) for c in range(3)]
     if group is not None:
         H = all_reduce(torch.stack(H, dim=-1), group).unbind(-1)
-    r = rotation_entries_from_quaternion(*quaternion_from_cross_covariance(*H))
-    R = torch.stack(r, dim=-1).reshape(*r[0].shape, 3, 3)
+    if method == "svd":
+        R = _procrustes_rotation(torch.stack(H, dim=-1).reshape(*H[0].shape, 3, 3))
+        r = R.reshape(*R.shape[:-2], 9).unbind(-1)
+    else:
+        r = rotation_entries_from_quaternion(*quaternion_from_cross_covariance(*H))
+        R = torch.stack(r, dim=-1).reshape(*r[0].shape, 3, 3)
     t = torch.stack(
         [qbar[..., c] - (r[3 * c] * pbar[..., 0] + r[3 * c + 1] * pbar[..., 1]
                          + r[3 * c + 2] * pbar[..., 2]) for c in range(3)],
         dim=-1,
     )
     return R, t
+
+
+def _procrustes_rotation(H: torch.Tensor) -> torch.Tensor:
+    """R = V diag(1, 1, det(V U^T)) U^T of the cross-covariance H [..., 3, 3]
+    (U S V^T = H + 1e-12 I; the jitter keeps an exactly degenerate H, such
+    as a padded hypothesis of identical points, well defined)."""
+    U, _, Vh = torch.linalg.svd(H + 1e-12 * torch.eye(3, dtype=H.dtype, device=H.device),
+                                full_matrices=False)
+    V = Vh.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    s = torch.sign(torch.linalg.det(V @ Ut))
+    s = torch.where(s == 0, 1.0, s).to(H.dtype)
+    V = torch.cat([V[..., :2], V[..., 2:] * s[..., None, None]], dim=-1)
+    return V @ Ut
 
 
 def transform_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,14 @@ Under correspondence sharding (`anchor_group`) the per-anchor work of the
 fast config is split over the group: each rank scores a contiguous slice of
 A/d anchors and one all-gather in rank order rebuilds the unsharded pool
 exactly (`saccot_tpu/engine/triangles.py:130-135, 221-236`).
+
+`triangle_pool` builds the pool from a dense score matrix S instead (tests
+and small N): degrees are the row sums of S, the anchors' top-B come from
+their rows, and s_jk is read from S when no points are given. With
+`num_anchors >= N` and `neighbors_per_anchor >= N - 1` its candidates are a
+superset of the oracle's clique enumeration. `pair_scores` and
+`edge_scores_from_points` score point pairs and edges by the shared
+predicate.
 """
 
 from __future__ import annotations
@@ -47,6 +55,54 @@ class TrianglePool(NamedTuple):
     triples: torch.Tensor
     scores: torch.Tensor   # [batch, K] float32, -1 for padded/invalid entries
     valid: torch.Tensor    # [batch, K] bool
+
+
+def pair_scores(
+    pa: torch.Tensor,
+    pb: torch.Tensor,
+    qa: torch.Tensor,
+    qb: torch.Tensor,
+    params: SacCotParams,
+) -> torch.Tensor:
+    """Compatibility score of point pairs (pa, pb) and (qa, qb), [..., 3] ->
+    [...], by `engine.compat`'s predicate (without the i != j test)."""
+    return pair_score(pair_distances(pa, pb), pair_distances(qa, qb),
+                      params.compat_tau, params.min_separation)
+
+
+def edge_scores_from_points(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    idx_a: torch.Tensor,
+    idx_b: torch.Tensor,
+    params: SacCotParams,
+) -> torch.Tensor:
+    """Compatibility score of the edges (idx_a, idx_b), gathering only their
+    point rows: P, Q [..., N, 3], idx [..., E] -> [..., E]; a self-edge
+    scores 0."""
+    def rows(X, idx):
+        return torch.gather(X, -2, idx[..., None].expand(*idx.shape, 3))
+
+    s = pair_scores(rows(P, idx_a), rows(P, idx_b), rows(Q, idx_a), rows(Q, idx_b), params)
+    return torch.where(idx_a != idx_b, s, 0.0)
+
+
+def triangle_pool(
+    S: torch.Tensor,
+    params: SacCotParams,
+    P: Optional[torch.Tensor] = None,
+    Q: Optional[torch.Tensor] = None,
+) -> TrianglePool:
+    """Pool from a dense score matrix S [batch, N, N] (tests and small N).
+    With P and Q [batch, N, 3], s_jk is scored from the points, else read
+    from S."""
+    batch, N, _ = S.shape
+    A = min(params.num_anchors, N)
+    B = min(params.neighbors_per_anchor, N - 1)
+    _, anchors = topk_stable(S.sum(dim=-1), A)                      # [batch, A]
+    rows = torch.gather(S, 1, anchors[..., None].expand(batch, A, N))
+    nbr_s, nbr_idx = topk_stable(rows, B)                           # [batch, A, B]
+    return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params, S=S)
 
 
 def triangle_pool_from_points(
@@ -136,32 +192,42 @@ def _pool_from_neighbors(
     anchors: torch.Tensor,   # [batch, A] anchor node ids
     nbr_s: torch.Tensor,     # [batch, A, B] neighbour scores, descending
     nbr_idx: torch.Tensor,   # [batch, A, B] neighbour node ids
-    P: torch.Tensor,
-    Q: torch.Tensor,
+    P: Optional[torch.Tensor],
+    Q: Optional[torch.Tensor],
     params: SacCotParams,
+    S: Optional[torch.Tensor] = None,
 ) -> TrianglePool:
-    """Candidate triangles scored from the neighbours' coordinates, then
-    ranked (the exact config above MAX_N_FUSED).
+    """Candidate triangles, then ranked: the exact config above MAX_N_FUSED,
+    and `triangle_pool`.
 
-    s_jk uses the shared predicate (`engine.compat.pair_score` on direct
-    differences); the JAX version takes `jnp.linalg.norm`, so a score within
-    an ulp of tau or min_separation may decide differently.
+    s_jk is scored from the neighbours' coordinates when P and Q are given,
+    by the shared predicate (`engine.compat.pair_score` on direct
+    differences; the JAX version takes `jnp.linalg.norm`, so a score within
+    an ulp of tau or min_separation may decide differently), else read from
+    the dense S [batch, N, N].
     """
     batch, A, B = nbr_idx.shape
-    b1, b2 = (torch.as_tensor(x, device=P.device) for x in np.triu_indices(B, k=1))
-    nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
+    b1, b2 = (torch.as_tensor(x, device=nbr_idx.device) for x in np.triu_indices(B, k=1))
     i = anchors[:, :, None]
     j = nbr_idx[:, :, b1]
     k = nbr_idx[:, :, b2]
     s_ij = nbr_s[:, :, b1]
     s_ik = nbr_s[:, :, b2]
-    s_jk = pair_score(pair_distances(nbr_p[:, :, b1], nbr_p[:, :, b2]),
-                      pair_distances(nbr_q[:, :, b1], nbr_q[:, :, b2]),
-                      params.compat_tau, params.min_separation)
-    s_jk = torch.where(j != k, s_jk, 0.0)
+    if P is not None and Q is not None:
+        nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
+        s_jk = pair_scores(nbr_p[:, :, b1], nbr_p[:, :, b2], nbr_q[:, :, b1], nbr_q[:, :, b2],
+                           params)
+        s_jk = torch.where(j != k, s_jk, 0.0)
+        n_nodes = P.shape[1]
+    else:
+        if S is None:
+            raise ValueError("_pool_from_neighbors needs either the points or the dense S")
+        n_nodes = S.shape[-1]
+        s_jk = torch.gather(S.reshape(batch, -1), 1,
+                            (j * n_nodes + k).reshape(batch, -1)).reshape(j.shape)
     valid = ((s_ij > 0) & (s_ik > 0) & (s_jk > 0) & (i != j) & (i != k) & (j != k))
     cand = torch.where(valid, s_ij + s_ik + s_jk, -1.0)
-    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, P.shape[1])
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, n_nodes)
 
 
 def _mark_cross_anchor_duplicates(

@@ -80,10 +80,12 @@ def fpfh_descriptors(
     radius,
     k: int = 32,
     mask: Optional[torch.Tensor] = None,
+    approx: bool = False,
     soft: bool = False,
 ) -> torch.Tensor:
     """FPFH descriptors [M, 33] at the keypoint indices `kp_idx`; `radius`
-    may be a float or a 0-d tensor."""
+    may be a float or a 0-d tensor. approx: accepted for the JAX package's
+    callers; the neighbour search is exact either way (`neighbors.knn`)."""
     d, idx = knn(points, points, k=k, query_mask=mask, ref_mask=mask, exclude_self=True)
     valid = neighbor_validity(d, radius=radius)
     s = spfh(points, normals, idx, valid, d, soft=soft)

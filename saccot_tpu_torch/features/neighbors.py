@@ -3,9 +3,10 @@
 Port of `saccot_tpu/features/neighbors.py`. A brute-force distance matrix,
 1024 query rows a step, so the peak is O(block * N); the k smallest
 distances of each row by `(distance, index)` order, the lowest index first
-among ties, as `lax.top_k` gives them. The JAX function's `approx=True`
-(`lax.approx_max_k`, which has no torch counterpart and is exact on the
-CPU) has no counterpart here: the selection is always exact.
+among ties, as `lax.top_k` gives them. `approx=True` is accepted and
+takes the exact selection: the JAX function's `lax.approx_max_k` has no
+torch counterpart (and is exact on the CPU), so recall can only match or
+exceed it.
 
 The squared distances are `|q|^2 + |r|^2 - 2 q.r` in the order the JAX
 function computes them on the CPU: the Gram product as a fused
@@ -86,11 +87,13 @@ def knn(
     ref_mask: Optional[torch.Tensor] = None,
     exclude_self: bool = False,
     block_rows: int = 1024,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest refs of each query point.
 
     query: [M, 3]; ref: [N, 3]; masks: optional validity of padded rows;
-    exclude_self: drop the i == j pair (self-kNN).
+    exclude_self: drop the i == j pair (self-kNN); approx: accepted for the
+    JAX package's callers, the search is exact either way.
 
     Returns (dists [M, k], idx [M, k] int64): Euclidean distances ascending;
     padded or missing neighbours have dist BIG and idx 0.

@@ -91,6 +91,7 @@ def shot_descriptors(
     radius,
     k: int = 64,
     mask: Optional[torch.Tensor] = None,
+    approx: bool = False,
     soft: bool = False,
 ) -> torch.Tensor:
     """SHOT descriptors [M, 352] of the keypoints `kp_idx` of a cloud.
@@ -98,7 +99,9 @@ def shot_descriptors(
     Invalid keypoints produce whatever their slot-0 gather gives; callers
     carry the keypoint mask. soft=True: quadrilinear interpolation
     (azimuth wrapped, elevation/radial/cosine clamped), each neighbour
-    spread over 2^4 bins. `radius` may be a float or a 0-d tensor.
+    spread over 2^4 bins. `radius` may be a float or a 0-d tensor. approx:
+    accepted for the JAX package's callers; the neighbour search is exact
+    either way (`neighbors.knn`).
     """
     kp = points[kp_idx]
     d, idx = knn(kp, points, k=k, ref_mask=mask)

@@ -5,8 +5,8 @@ Two checkpointable states:
 1. Sweep progress (`SweepCheckpointer`): which pair shards are done and
    their per-pair results, so a lost process resumes a long dataset sweep
    from the last shard boundary.
-2. SLAM state (`save`, `restore`, `save_slam_state`): poses, landmarks and
-   the Gauss-Newton iterate, so BA resumes mid-solve.
+2. SLAM state (`save`, `restore`, `save_slam_state`, `restore_slam_state`):
+   poses, landmarks and the Gauss-Newton iterate, so BA resumes mid-solve.
 
 A SLAM state is a flat dict of arrays (poses, landmarks, the Gauss-Newton
 iterate count, the LM damping). `save` writes it with `torch.save` as CPU
@@ -115,3 +115,8 @@ def save_slam_state(path: str, poses, landmarks=None, gn_iter: int = 0, lam=None
     if lam is not None:
         state["lam"] = np.asarray(lam)
     save(path, state)
+
+
+def restore_slam_state(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The SLAM state `save_slam_state` wrote at `path`, or None."""
+    return restore(path)

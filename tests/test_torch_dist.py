@@ -96,9 +96,10 @@ def sweep_batch():
 
 @pytest.fixture(scope="module")
 def world2(probs):
-    """Every two-rank case, in one spawn of two gloo ranks."""
+    """Every two-rank case, in one spawn of two gloo ranks, which join by
+    `init_distributed`'s explicit arguments with the rank variables unset."""
     return run_ranks(torch_dist_ranks.world2, 2, "gloo", probs, PARAMS, RING, FAST,
-                     timeout=300)
+                     timeout=300, explicit_init=True)
 
 
 @pytest.fixture(scope="module")
@@ -201,6 +202,47 @@ def test_register_batch_tp_matches_register_pair_tp(probs, world2):
         assert int(got.num_inliers[0]) == int(ref.num_inliers)
         assert float(got.best_score[0]) == float(ref.best_score)
         np.testing.assert_array_equal(got.inliers[0], np.asarray(ref.inliers))
+
+
+@pytest.mark.parametrize("case", ["allgather", "ring", "masked", "anchor"])
+def test_register_pair_sp_matches_jax_and_the_batch_form(probs, world2, case):
+    """`register_pair_sp` over two ranks vs the JAX package's under
+    shard_map (corr = 2), with the batch form's bounds, and bit for bit the
+    row of `register_batch_sp` for the same pair."""
+    params = {"ring": RING, "anchor": FAST}.get(case, PARAMS)
+    ref = _shard_map(
+        lambda p, q, m: register_pair_sp(p, q, _jax(params), "corr", mask_shard=m, **PALLAS),
+        make_mesh(pairs=1, corr=2), P("corr"), _specs(P("corr")), *probs[case])
+    for r, res in enumerate(world2):
+        got = res["pair_" + case]
+        for a, b in zip(got, res[case]):
+            np.testing.assert_array_equal(a, b[0])
+        assert _rot_deg(got.T, ref.T) < 0.05
+        assert int(got.num_inliers) == int(ref.num_inliers)
+        np.testing.assert_array_equal(got.inliers,
+                                      np.asarray(ref.inliers)[r * N // 2:(r + 1) * N // 2])
+
+
+def test_register_pair_tp_matches_jax_and_the_batch_form(probs, world2):
+    """`register_pair_tp` over two ranks vs the JAX package's (hyp = 2),
+    with the batch form's bounds, and bit for bit `register_batch_tp`'s row."""
+    ref = _shard_map(lambda p, q, m: register_pair_tp(p, q, _jax(PARAMS), "hyp", mask=m, **PALLAS),
+                     make_mesh(pairs=1, corr=1, hyp=2), P(), _specs(P()), *probs["tp"])
+    for res in world2:
+        got = res["pair_tp"]
+        for a, b in zip(got, res["tp"]):
+            np.testing.assert_array_equal(a, b[0])
+        assert _rot_deg(got.T, ref.T) < 0.05
+        assert int(got.num_inliers) == int(ref.num_inliers)
+        assert float(got.best_score) == float(ref.best_score)
+        np.testing.assert_array_equal(got.inliers, np.asarray(ref.inliers))
+
+
+def test_explicit_init_joins_two_ranks_without_the_rank_variables(world2):
+    """The two ranks of `world2` joined by `init_distributed(address, 2, r)`
+    with MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE unset."""
+    assert [res["init"] for res in world2] == [
+        dict(rank=r, world=2, backend="gloo", env=[]) for r in range(2)]
 
 
 def test_sweep_dp_x_sp_matches_make_sweep_fn(sweep_batch, world4):

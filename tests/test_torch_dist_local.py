@@ -63,3 +63,17 @@ def test_make_mesh_without_group_under_a_larger_world_raises():
         [sys.executable, "-c", "from saccot_tpu_torch.dist.mesh import make_mesh; make_mesh()"],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
     assert run.returncode != 0 and "init_distributed" in run.stderr
+
+
+def test_explicit_single_process_joins_nothing(monkeypatch):
+    """`num_processes=1` joins nothing, as the JAX package's does, even where
+    the environment names a larger world (whose missing RANK would raise)."""
+    import torch.distributed as dist
+
+    from saccot_tpu_torch.dist.mesh import init_distributed
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("RANK", raising=False)
+    assert init_distributed(num_processes=1) is None
+    assert init_distributed("127.0.0.1:29500", num_processes=1, process_id=0) is None
+    assert not dist.is_initialized()

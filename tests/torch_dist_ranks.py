@@ -6,15 +6,19 @@ arrive as NumPy arrays and the results go back as NumPy arrays.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
+from saccot_tpu_torch.dist.local import RANK_VARS
 from saccot_tpu_torch.dist.mesh import axis_group, make_mesh
 from saccot_tpu_torch.dist.ring import degrees_ring
 from saccot_tpu_torch.dist.sweep import make_sweep_fn, run_sweep
 from saccot_tpu_torch.engine import triangles as ttri
-from saccot_tpu_torch.engine.sac_cot import register_batch_sp, register_batch_tp
+from saccot_tpu_torch.engine.sac_cot import (
+    register_batch_sp, register_batch_tp, register_pair_sp, register_pair_tp,
+)
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels import compat as kcompat
 from saccot_tpu_torch.utils.convert import KITTI_SEED, kitti_problem_batch, problem_batch
@@ -37,21 +41,29 @@ def _ring_degrees(prob, params, group, rank, d):
 
 
 def world2(probs, params, ring_params, fast_params):
-    """Every two-rank case: ring degrees, SP (all-gather, ring, masked,
-    anchor-sharded), the anchor-sharded pool on replicated inputs, TP."""
+    """Every two-rank case: how the rank joined, ring degrees, SP
+    (all-gather, ring, masked, anchor-sharded; batch and per-pair forms),
+    the anchor-sharded pool on replicated inputs, TP (both forms)."""
     torch.set_num_threads(1)  # several ranks and test workers share the cores
+    dist = torch.distributed
+    out = {"init": dict(rank=dist.get_rank(), world=dist.get_world_size(),
+                        backend=dist.get_backend(),
+                        env=[k for k in RANK_VARS if k in os.environ])}
     mesh = make_mesh(pairs=1, corr=2)
     g, r = axis_group(mesh, "corr"), mesh.get_local_rank("corr")
-    out = {"ring_deg": _ring_degrees(probs["deg"], params, g, r, 2)}
+    out["ring_deg"] = _ring_degrees(probs["deg"], params, g, r, 2)
     for key, prm in (("allgather", params), ("ring", ring_params), ("masked", params),
                      ("anchor", fast_params)):
         out[key] = _sp(probs[key], prm, g, r, 2)
+        P, Q, m = (_shard(x, r, 2)[0] for x in probs[key])
+        out["pair_" + key] = register_pair_sp(P, Q, prm, g, mask_loc=m)
     P, Q = (torch.from_numpy(x)[None] for x in probs["anchor"][:2])
     deg = kcompat.degrees(P, Q, P, Q, fast_params)
     out["pool"] = ttri.triangle_pool_from_points(P, Q, deg, fast_params, anchor_group=g)
     tp = make_mesh(pairs=1, hyp=2)
     P, Q, m = (torch.from_numpy(x)[None] for x in probs["tp"])
     out["tp"] = register_batch_tp(P, Q, params, axis_group(tp, "hyp"), mask=m)
+    out["pair_tp"] = register_pair_tp(P[0], Q[0], params, axis_group(tp, "hyp"), mask=m[0])
     return out
 
 
