@@ -31,6 +31,14 @@ in the JAX package) run over `torch.distributed` groups:
 
 `register_pair_sp` and `register_pair_tp` are the per-pair forms of the
 JAX package's sharded bodies: a batch of one, returned without the axis.
+
+Every call runs its stages in seven consecutive `torch.profiler` ranges
+named `STAGE_PREFIX + <stage>`: degrees (the casts, the mask and the
+degree rows, with SP's gathers or ring), pool (the triangle pool and TP's
+slice of it), solve, score, select (the best hypothesis and TP's champion
+gather), refine and result (the success masks, T and the counts). A
+profile of any call reads each stage's host and device time
+(`utils.profile.profile_call(..., ranges=STAGE_PREFIX)`).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from saccot_tpu_torch.dist.collectives import all_gather, all_reduce, group_rank, group_size
 from saccot_tpu_torch.dist.ring import degrees_ring
@@ -49,6 +58,13 @@ from saccot_tpu_torch.kernels import score as score_k
 from saccot_tpu_torch.kernels import solve3 as solve3_k
 from saccot_tpu_torch.kernels.triangles import MAX_NEIGHBORS
 from saccot_tpu_torch.utils.params import SacCotParams
+
+# The profiler ranges of `_register_batch`'s stages are named STAGE_PREFIX + <stage>.
+STAGE_PREFIX = "saccot/"
+
+
+def _stage(name: str):
+    return record_function(STAGE_PREFIX + name)
 
 
 class RegistrationResult(NamedTuple):
@@ -144,28 +160,30 @@ def _register_batch(
     `impl`."""
     routes = _routes(impl, compat_impl, pool_impl, solve_impl, score_impl)
     degrees_fn, solve_fn, score_fn = _stages(routes)
-    P = P.to(torch.float32)
-    Q = Q.to(torch.float32)
-    batch, n_loc, _ = P.shape
-    m = (torch.ones((batch, n_loc), dtype=torch.float32, device=P.device)
-         if mask is None else mask.to(torch.float32))
-    # None masks (not all-ones) let the kernels skip their mask reads.
-    kmask = None if mask is None else m
+    with _stage("degrees"):
+        P = P.to(torch.float32)
+        Q = Q.to(torch.float32)
+        batch, n_loc, _ = P.shape
+        m = (torch.ones((batch, n_loc), dtype=torch.float32, device=P.device)
+             if mask is None else mask.to(torch.float32))
+        # None masks (not all-ones) let the kernels skip their mask reads.
+        kmask = None if mask is None else m
 
-    if corr_group is None:
-        P_full, Q_full, kmask_full = P, Q, kmask
-        deg = degrees_fn(P, Q, P, Q, params, mask_rows=kmask, mask_cols=kmask)
-    else:
-        # One small all-gather of raw points; everything quadratic stays sharded.
-        P_full, Q_full = all_gather(P, corr_group, dim=1), all_gather(Q, corr_group, dim=1)
-        kmask_full = None if kmask is None else all_gather(kmask, corr_group, dim=1)
-        if params.ring_compat:
-            deg = degrees_ring(P, Q, params, corr_group, mask_loc=kmask, impl=routes["compat"])
+        if corr_group is None:
+            P_full, Q_full, kmask_full = P, Q, kmask
+            deg = degrees_fn(P, Q, P, Q, params, mask_rows=kmask, mask_cols=kmask)
         else:
-            deg = degrees_fn(P, Q, P_full, Q_full, params,
-                             row_offset=group_rank(corr_group) * n_loc,
-                             mask_rows=kmask, mask_cols=kmask_full, mxu=False)
-        deg = all_gather(deg, corr_group, dim=1)
+            # One small all-gather of raw points; everything quadratic stays sharded.
+            P_full, Q_full = all_gather(P, corr_group, dim=1), all_gather(Q, corr_group, dim=1)
+            kmask_full = None if kmask is None else all_gather(kmask, corr_group, dim=1)
+            if params.ring_compat:
+                deg = degrees_ring(P, Q, params, corr_group, mask_loc=kmask,
+                                   impl=routes["compat"])
+            else:
+                deg = degrees_fn(P, Q, P_full, Q_full, params,
+                                 row_offset=group_rank(corr_group) * n_loc,
+                                 mask_rows=kmask, mask_cols=kmask_full, mxu=False)
+            deg = all_gather(deg, corr_group, dim=1)
     N = P_full.shape[1]
     if (P.is_cuda and routes["pool"] == "kernel"
             and min(params.neighbors_per_anchor, N - 1) > MAX_NEIGHBORS):
@@ -173,49 +191,56 @@ def _register_batch(
             f"neighbors_per_anchor > {MAX_NEIGHBORS}: the anchor kernels hold the "
             "B x B pair grid in shared memory; larger B is listed in ROADMAP queue 3")
 
-    pool = tri_mod.triangle_pool_from_points(P_full, Q_full, deg, params, mask=kmask_full,
-                                             impl=routes["pool"], anchor_group=corr_group)
-    triples, hyp_valid = pool.triples, pool.valid
-    if hyp_group is not None:
-        d_h = group_size(hyp_group)
-        K = pool.scores.shape[1]
-        if K % d_h:
-            raise ValueError(f"max_hypotheses={K} must be divisible by the hyp group size {d_h}")
-        k0 = group_rank(hyp_group) * (K // d_h)
-        triples = triples[:, k0:k0 + K // d_h].contiguous()
-        hyp_valid = hyp_valid[:, k0:k0 + K // d_h]
-    r9, t3 = solve_fn(P_full, Q_full, triples)
-    scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring,
-                         group=corr_group)
+    with _stage("pool"):
+        pool = tri_mod.triangle_pool_from_points(P_full, Q_full, deg, params, mask=kmask_full,
+                                                 impl=routes["pool"], anchor_group=corr_group)
+        triples, hyp_valid = pool.triples, pool.valid
+        if hyp_group is not None:
+            d_h = group_size(hyp_group)
+            K = pool.scores.shape[1]
+            if K % d_h:
+                raise ValueError(
+                    f"max_hypotheses={K} must be divisible by the hyp group size {d_h}")
+            k0 = group_rank(hyp_group) * (K // d_h)
+            triples = triples[:, k0:k0 + K // d_h].contiguous()
+            hyp_valid = hyp_valid[:, k0:k0 + K // d_h]
+    with _stage("solve"):
+        r9, t3 = solve_fn(P_full, Q_full, triples)
+    with _stage("score"):
+        scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring,
+                             group=corr_group)
 
-    best_score, Rb, tb = best_hypothesis(scores, hyp_valid, r9, t3)
-    if hyp_group is not None:
-        # Champions of every slice, gathered in rank order: the argmax over
-        # them keeps the first maximum of the whole pool.
-        g_scores = all_gather(best_score[None], hyp_group, dim=0)   # [d_h, batch]
-        g_R = all_gather(Rb[None], hyp_group, dim=0)
-        g_t = all_gather(tb[None], hyp_group, dim=0)
-        g_best = torch.argmax(g_scores, dim=0)
-        rows = torch.arange(batch, device=P.device)
-        best_score, Rb, tb = g_scores[g_best, rows], g_R[g_best, rows], g_t[g_best, rows]
+    with _stage("select"):
+        best_score, Rb, tb = best_hypothesis(scores, hyp_valid, r9, t3)
+        if hyp_group is not None:
+            # Champions of every slice, gathered in rank order: the argmax over
+            # them keeps the first maximum of the whole pool.
+            g_scores = all_gather(best_score[None], hyp_group, dim=0)   # [d_h, batch]
+            g_R = all_gather(Rb[None], hyp_group, dim=0)
+            g_t = all_gather(tb[None], hyp_group, dim=0)
+            g_best = torch.argmax(g_scores, dim=0)
+            rows = torch.arange(batch, device=P.device)
+            best_score, Rb, tb = g_scores[g_best, rows], g_R[g_best, rows], g_t[g_best, rows]
 
-    Rb, tb, inl = refine(P, Q, Rb, tb, params, m, corr_group)
+    with _stage("refine"):
+        Rb, tb, inl = refine(P, Q, Rb, tb, params, m, corr_group)
 
-    success = pool.valid.any(dim=1)
-    eye = torch.eye(3, dtype=torch.float32, device=P.device)
-    Rb = torch.where(success[:, None, None], Rb, eye)
-    tb = torch.where(success[:, None], tb, 0.0)
-    inl = inl & success[:, None]
-    return RegistrationResult(
-        R=Rb,
-        t=tb,
-        T=transform_from_rt(Rb, tb),
-        inliers=inl,
-        num_inliers=all_reduce(inl.sum(dim=1, dtype=torch.int32), corr_group),
-        best_score=best_score,
-        num_valid_triangles=pool.valid.sum(dim=1, dtype=torch.int32),
-        success=success,
-    )
+    with _stage("result"):
+        success = pool.valid.any(dim=1)
+        eye = torch.eye(3, dtype=torch.float32, device=P.device)
+        Rb = torch.where(success[:, None, None], Rb, eye)
+        tb = torch.where(success[:, None], tb, 0.0)
+        inl = inl & success[:, None]
+        return RegistrationResult(
+            R=Rb,
+            t=tb,
+            T=transform_from_rt(Rb, tb),
+            inliers=inl,
+            num_inliers=all_reduce(inl.sum(dim=1, dtype=torch.int32), corr_group),
+            best_score=best_score,
+            num_valid_triangles=pool.valid.sum(dim=1, dtype=torch.int32),
+            success=success,
+        )
 
 
 def register_batch(

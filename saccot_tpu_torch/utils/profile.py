@@ -8,7 +8,10 @@ warm-up batch), and from `torch.profiler` over `--batches` batches the device
 busy ms per batch (the sum of CUDA kernel times; the port runs on one
 stream), the idle share 1 - busy / wall, the kernels launched per batch, the
 five kernels with the most device time, and the device ms per batch of each
-hand-written kernel (`csrc/`). Needs a CUDA device. `kernel_device_ms`
+hand-written kernel (`csrc/`), and for each stage of the estimator (its
+`saccot/<stage>` range) the host and device ms, the device operations it
+launched and the blocking runtime calls inside it (`range_counts`). Needs
+a CUDA device. `kernel_device_ms`
 gives the same device ms of the hand-written kernels for any call
 (`chip_smoke.py` reads it beside the CUDA-event times of the degree kernels),
 and `launch_floor_ms` that of an empty kernel launched as one thread: the
@@ -18,6 +21,7 @@ least any launch takes on the card, as this reading sees it.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import re
@@ -27,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from saccot_tpu_torch.engine.sac_cot import register_batch
+from saccot_tpu_torch.engine import sac_cot
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch
 from saccot_tpu_torch.utils.params import SacCotParams
@@ -73,24 +77,20 @@ def _device_us(row) -> float:
     return 0.0
 
 
-def _total_device_us(row) -> float:
-    """Device time of the kernels launched inside a host row, its children's
-    included."""
-    for name in ("device_time_total", "cuda_time_total"):
-        if hasattr(row, name):
-            return float(getattr(row, name))
-    return 0.0
-
-
-def profiler_rows(fn, batches: int):
-    """`torch.profiler`'s rows (`key_averages()`) over `batches` calls of fn
-    (`utils.profiling.profiler`: the device is traced where there is one)."""
+def _capture(fn, batches: int):
+    """A `utils.profiling.profiler` capture of `batches` calls of fn (the
+    device is traced where there is one)."""
     with profiler() as prof:
         for _ in range(batches):
             fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    return prof.key_averages()
+    return prof
+
+
+def profiler_rows(fn, batches: int):
+    """`torch.profiler`'s rows (`key_averages()`) over `batches` calls of fn."""
+    return _capture(fn, batches).key_averages()
 
 
 def _kernel_rows(rows):
@@ -108,15 +108,79 @@ def _profile(fn, batches: int):
 
 
 def range_ms(rows, prefix: str, batches: int) -> dict:
-    """{name: dict(calls, host_ms, device_ms)} a call, for each
-    `record_function` range named prefix + name among the profiler's rows
-    over `batches` calls: its entries, the host wall ms inside it and the
-    device ms of the kernels launched inside it."""
+    """{name: dict(calls, host_ms)} a call, for each `record_function` range
+    named prefix + name among the profiler's rows over `batches` calls: its
+    entries and the host wall ms inside it. The device side is
+    `range_counts`': a row holds only the kernels that torch operators
+    launched, not those of the ctypes launches of `csrc/`."""
     return {r.key[len(prefix):]: dict(calls=r.count / batches,
-                                      host_ms=r.cpu_time_total / 1e3 / batches,
-                                      device_ms=_total_device_us(r) / 1e3 / batches)
+                                      host_ms=r.cpu_time_total / 1e3 / batches)
             for r in rows
             if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith(prefix)}
+
+
+# The CUDA runtime calls that hold the calling thread until the card has
+# caught up (a stream, the device, an event, or a copy that is not `Async`).
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                  "cudaMemcpy")
+
+
+def _is_runtime_call(ev) -> bool:
+    """A host record of the CUDA runtime or driver API (`cudaLaunchKernel`,
+    `cuLaunchKernel`, `cudaMemcpyAsync`, ...), not an operator or a range."""
+    return ev.device_type == torch.autograd.DeviceType.CPU and ev.name.startswith("cu")
+
+
+def range_counts(events, prefix: str, batches: int) -> dict:
+    """{name: dict(device_ms, device_ops, syncs, sync_ms)} a call, for
+    each `record_function` range named prefix + name among the events of a
+    capture (`prof.events()`) over `batches` calls: the device operations
+    (kernels, copies, fills) launched inside it and their device ms, and
+    the blocking runtime calls (`BLOCKING_CALLS`) inside it, with their host
+    ms. A device operation is put down to the runtime call that launched it
+    by the two records' correlation id (never by its name or its time on the
+    card), and a runtime call to the range whose host interval holds its
+    start: the ranges of one call do not overlap, and a call runs on one
+    thread. A runtime call that a torch operator made carries that
+    operator's thread; one made outside torch (a ctypes launch) carries the
+    OS thread's id, so a call on another torch thread is left out, one
+    outside torch is placed by time alone. A range's own span on the card
+    is not an operation."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = sorted(((e.time_range.start, e.time_range.end, e.thread, e.name[len(prefix):])
+                    for e in events if e.device_type == cpu and e.name.startswith(prefix)),
+                   key=lambda s: s[0])
+    starts = [s[0] for s in spans]
+    threads = {e.thread for e in events if e.device_type == cpu and not _is_runtime_call(e)}
+    out = {s[3]: dict(device_ms=0.0, device_ops=0, syncs=0, sync_ms=0.0) for s in spans}
+
+    def holder(call):
+        i = bisect.bisect_right(starts, call.time_range.start) - 1
+        if i < 0:
+            return None
+        start, end, thread, name = spans[i]
+        if call.time_range.start > end or (call.thread in threads and call.thread != thread):
+            return None
+        return out[name]
+
+    launches = {}
+    for ev in events:
+        if not _is_runtime_call(ev):
+            continue
+        launches[ev.id] = ev
+        row = holder(ev) if ev.name in BLOCKING_CALLS else None
+        if row is not None:
+            row["syncs"] += 1
+            row["sync_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
+    for ev in events:
+        if ev.device_type != cuda or getattr(ev, "is_user_annotation", False):
+            continue
+        call = launches.get(ev.id)
+        row = None if call is None else holder(call)
+        if row is not None:
+            row["device_ops"] += 1
+            row["device_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
+    return {name: {k: v / batches for k, v in row.items()} for name, row in out.items()}
 
 
 def kernel_device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
@@ -155,7 +219,8 @@ def profile_call(fn, reps: int = 5, batches: int = 3, ranges: Optional[str] = No
     sum of CUDA kernel times; the port runs on one stream), the idle share
     1 - busy / wall, the kernels launched a call, the five kernels with the
     most device time, the device ms a call of each hand-written kernel and,
-    given a prefix `ranges`, `range_ms` of the ranges it names."""
+    given a prefix `ranges`, `range_ms` and `range_counts` of the ranges it
+    names."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -163,7 +228,8 @@ def profile_call(fn, reps: int = 5, batches: int = 3, ranges: Optional[str] = No
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = profiler_rows(fn, batches)
+    prof = _capture(fn, batches)
+    rows = prof.key_averages()
     kernels = _kernel_rows(rows)
     busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / batches
     top = sorted(kernels, key=_device_us, reverse=True)[:5]
@@ -179,15 +245,22 @@ def profile_call(fn, reps: int = 5, batches: int = 3, ranges: Optional[str] = No
         top_kernels=[dict(name=r.key[:80], ms_per_batch=_device_us(r) / 1e3 / batches,
                           calls_per_batch=r.count / batches) for r in top],
         own_kernels_ms_per_batch=own,
-        **({} if ranges is None else dict(ranges=range_ms(rows, ranges, batches))),
+        **({} if ranges is None else dict(ranges=_ranges(prof, rows, ranges, batches))),
     )
+
+
+def _ranges(prof, rows, prefix: str, batches: int) -> dict:
+    counts = range_counts(prof.events(), prefix, batches)
+    return {name: {**row, **counts[name]}
+            for name, row in range_ms(rows, prefix, batches).items()}
 
 
 def profile_point(name: str, reps: int, batches: int) -> dict:
     dev = torch.device("cuda", 0)
     (P, Q), params = POINTS[name](dev)
     return dict(point=name, batch=P.shape[0], n=P.shape[1],
-                **profile_call(lambda: register_batch(P, Q, params), reps, batches))
+                **profile_call(lambda: sac_cot.register_batch(P, Q, params), reps, batches,
+                               ranges=sac_cot.STAGE_PREFIX))
 
 
 def main(argv=None) -> int:
