@@ -22,7 +22,12 @@ Phases (any failure exits non-zero before the result lines are printed):
      two-sided degree loop's `degree_plan` (rows a thread, column splits)
      at every degree shape of phases 3, 6, 8 and 10; the solve bit for bit
      against its plain version, with its `solve_plan`, and under every
-     block size of its sweep (`hold_solve_plans`: blocks of 32-256);
+     block size of its sweep (`hold_solve_plans`: blocks of 32-256); the
+     refine kernel (row 12) against its plain version from the best
+     hypothesis, with and without a mask (`hold_refine`: R, t within 1e-5,
+     its inlier mask its own fit's bit for bit, flips from the plain mask
+     only within the two fits' reach of tau, the same bits in two calls and
+     for the last pair alone);
   4. `register_batch` at the bench point (128 planted pairs, seeds 1000+s,
      80% outliers, noise 0.004) in the fast and the exact configuration:
      recall under the 5 deg / 0.05 criterion, launch counts of every kernel
@@ -48,9 +53,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      its sweep (the same bits, also for each half of the anchors alone, and
      at N=3,000 the fused kernel's top-T mode's, with and without masks);
      the solve bit for bit under every block size of its sweep at kitti
-     (phases 3 and 5 at the bench and 3DMatch points), and the score kernel
+     (phases 3 and 5 at the bench and 3DMatch points), the score kernel
      at N=50,000, held as in phase 3 there and at the SP shard's 25,000
-     points;
+     points, and the refine kernel at N=50,000, held as in phase 3;
   7. `register_batch` at the kitti configuration (seeds 500-501, 70%
      outliers, 5 deg / 0.6 m criterion), exact and fast variant, through the
      kernels and through the plain versions: recall, inliers per pair, ms per
@@ -72,9 +77,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      the ring at the kitti configuration, SP without it at the 3DMatch point,
      each held to the single-rank runs of phases 4, 5 and 7; the per-pair
      forms `register_pair_tp` and `register_pair_sp` on one pair of the TP
-     and the 3DMatch SP batch, each field the refine does not reach bit
-     for bit the batch forms' rows and R, t, T within 1e-5 (the refine's
-     torch sums add in an order set by the batch); which
+     and the 3DMatch SP batch, every field bit for bit the batch forms'
+     rows (the refine kernel's sums are fixed by the shard's N alone); SP's
+     refine fits after its all-reduces (`refine_fit`, once a fit); which
      collectives gloo takes on CUDA tensors; each rank's launch counts;
  10. the degree loop's per-operation attribution (`compat_ops.cu`, the TPU
      script scripts/exp_compat_ops.py): each of its five modes in both forms
@@ -102,7 +107,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      stats, final poses within 1e-3, ATE < 0.05, a repeat call bit for bit,
      rows 1-4's launches counted, host and device ms of each stage from the
      profiler ranges `slam/<stage>`; the same at 128 scans (170 edges, PGO
-     by PCG): the same edges registered, poses within 1e-3; the JAX tests'
+     by PCG): the same edges registered, PGO poses and the final poses BA
+     observes 10+ times within 1e-3, the 13 observed fewer times (set by
+     rounding: BA's known limit) held by each route's ATE; the JAX tests'
      scale points (PGO by PCG at M=256, BA at M=128, L=4,096) within their
      bounds; the sampler ablation at the recorded points (16 pairs, N=1,000,
      K = 128 and 512, 80/90/95% outliers) by both routes: recall saccot >=
@@ -116,9 +123,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      and power limit: the five run configurations at their own sizes (bunny
      recall 1.0; u3m 45 pairs, at least 33 eligible pairs registered;
      threedmatch in shards of 16, T bit for bit phase 5's; kitti through
-     `register_pair`, every stage before the refine bit for bit phase 7's
-     batch of 2 and T within 1e-5 (the refine's torch sums over N=50,000
-     add in an order set by the batch); slam 13 of 13 edges, ATE equal to
+     `register_pair`, every stage (the refine kernel's sums are fixed by N
+     alone) and T bit for bit phase 7's batch of 2; slam 13 of 13 edges, ATE equal to
      phase 12's), files (two PLY views of 8,192 points), sequence --loops
      (8 KITTI scans of 30,000 points on a closed circle: a loop closure,
      the optimised ATE at most 1.2 x the raw one), external (8 fragments of
@@ -328,6 +334,54 @@ def hold_score(r9, t3, P, Q, tau, where, mask=None):
           f"max |kernel - plain| {(ws - wr).abs().max().item():.4g} (rtol {rtol:.3g}), "
           f"bit-identical across two calls and for hypotheses {h}.. alone "
           f"({plan_str(kscore.score_plan(batch, K - h, N, sms))})", flush=True)
+
+
+def hold_refine(P, Q, scores, valid, r9, t3, params, where):
+    """The refine kernel (row 12) against its plain version from the best
+    hypothesis of `scores`, with no mask and with one that drops every
+    fifth point: R and t within 1e-5 (the same sums in another order), the
+    kernel's inlier mask `inlier_mask` of its own fit bit for bit, and where
+    it differs from the plain refine's, the point's residual under the
+    plain fit within the two fits' distance at that point of tau; the same
+    bits in two calls and for the last pair refined alone. Returns the
+    largest R, t difference and the best hypothesis (R, t)."""
+    import torch
+
+    from saccot_tpu_torch.engine import score as score_mod
+    from saccot_tpu_torch.engine.sac_cot import best_hypothesis
+    from saccot_tpu_torch.kernels import refine as krefine
+
+    _, R, t = best_hypothesis(scores, valid, r9, t3)
+    tau = params.inlier_tau
+    err, flips = 0.0, 0
+    for masked in (False, True):
+        m = torch.ones(P.shape[:2], device=P.device)
+        if masked:
+            m[:, ::5] = 0.0
+        (Rk, tk, ik), (Rp, tp, ip) = (krefine.refine(P, Q, R, t, params, m),
+                                      krefine.refine_reference(P, Q, R, t, params, m))
+        err = max(err, (Rk - Rp).abs().max().item(), (tk - tp).abs().max().item())
+        check(err <= 1e-5, f"refine at {where}: R, t {err} from the plain refine")
+        check(torch.equal(ik, score_mod.inlier_mask(Rk, tk, P, Q, tau, mask=m)),
+              f"refine at {where}: the mask is not its own fit's")
+        flip = ik != ip
+        if flip.any():
+            x = score_mod._residual(Rp, tp, P, Q)
+            d = torch.sqrt((x * x).sum(-1))
+            reach = ((Rk - Rp).flatten(1).norm(dim=1)[:, None] * P.norm(dim=-1)
+                     + (tk - tp).norm(dim=1)[:, None] + 1e-6 * tau)
+            check(bool(((d - tau).abs() <= reach)[flip].all()),
+                  f"refine at {where}: an inlier flip beyond the fits' reach of tau")
+        flips += int(flip.sum())
+        again = krefine.refine(P, Q, R, t, params, m)
+        last = krefine.refine(P[-1:], Q[-1:], R[-1:], t[-1:], params, m[-1:])
+        check(all(torch.equal(a, b) for a, b in zip(again, (Rk, tk, ik)))
+              and all(torch.equal(a[0], b[-1]) for a, b in zip(last, (Rk, tk, ik))),
+              f"refine at {where}: another call or the last pair alone gives other bits")
+    print(f"  refine at {where}: {krefine.refine_plan(P.shape[0], P.shape[1], params.refine_iters)}"
+          f"; R, t within {err:.3g} of the plain refine, {flips} inlier flips, bit for bit "
+          f"across two calls and for the last pair alone", flush=True)
+    return err, R, t
 
 
 def hold_weighted(P, Q, params, T_gt, criterion, where):
@@ -646,13 +700,25 @@ def slam_route_runs(seq, impl, dev):
     return res, (time.perf_counter() - t0) * 1e3, _build.launches()
 
 
+# BA poses that the landmark tracks observe fewer times than this are held
+# by ATE, not pose by pose (tests/test_torch_slam_sequence.py WELL_OBSERVED).
+WELL_OBSERVED = 10
+
+
 def hold_slam_routes(k, p, seq, what, same_stats=True):
     """Both routes of one sequence: every edge registered the same way, the
-    same BA track stats, final poses within 1e-3; returns the ATEs (PGO and
-    final) of each route."""
+    same BA track stats, PGO poses and the final poses that BA's tracks
+    observe at least WELL_OBSERVED times (or not at all) within 1e-3, each
+    route's final ATE under the slam bound; returns the ATEs (PGO and final)
+    of each route and the largest final-pose gap (all poses; the weakly
+    observed ones are set by rounding, as the known limit of BA says: their
+    reduced system is damped to condition about 1e10, so the routes' edges,
+    which the refine kernel and the plain refine sum in other orders, move
+    them apart)."""
     import torch
 
     from saccot_tpu_torch.evaluation.metrics import ate
+    from saccot_tpu_torch.slam import frontend as fe
 
     E = len(seq["edges"])
     check(torch.equal(k.registration.success, p.registration.success),
@@ -662,8 +728,18 @@ def hold_slam_routes(k, p, seq, what, same_stats=True):
             same = (abs(k.ba_stats[key] - p.ba_stats[key]) <= 1e-6 * abs(p.ba_stats[key])
                     if key == "huber_delta" else k.ba_stats[key] == p.ba_stats[key])
             check(same, f"{what}: BA track stat {key} {k.ba_stats[key]} vs {p.ba_stats[key]}")
-    gap = (k.poses - p.poses).abs().max().item()
-    check(gap < 1e-3, f"{what}: final poses of the routes {gap} apart")
+    pgo_gap = (k.pose_graph_result.poses - p.pose_graph_result.poses).abs().max().item()
+    check(pgo_gap < 1e-3, f"{what}: PGO poses of the routes {pgo_gap} apart")
+    prob, _ = fe.correspondences_to_ba(
+        k.pose_graph_result.poses, seq["edges"], seq["edge_P"], seq["edge_Q"],
+        k.registration.inliers.cpu().numpy(), merge_cell=3.0 * fe.SLAM_PARAMS.inlier_tau,
+        device=k.poses.device)
+    real = prob.obs_w > 0
+    obs = torch.bincount(prob.obs_pose[real].long(), minlength=k.poses.shape[0])
+    firm = (obs == 0) | (obs >= WELL_OBSERVED)
+    gaps = (k.poses - p.poses).abs().flatten(1).max(dim=1).values
+    gap, firm_gap = gaps.max().item(), gaps[firm].max().item()
+    check(firm_gap < 1e-3, f"{what}: final poses of the routes {firm_gap} apart")
     out = {}
     for name, res in (("kernel", k), ("plain", p)):
         check(bool(torch.isfinite(res.poses).all())
@@ -674,6 +750,11 @@ def hold_slam_routes(k, p, seq, what, same_stats=True):
             registered=int(res.registration.success.sum()), edges=E,
             ate_pgo=ate(pgo, seq["poses_gt"])["rmse"],
             ate=ate(res.poses.double().cpu().numpy(), seq["poses_gt"])["rmse"])
+        check(out[name]["ate"] < fe.SLAM_ATE_BOUND, f"{what}: final ATE {out[name]['ate']} "
+                                                    f"({name})")
+    print(f"  {what}: PGO poses {pgo_gap:.3g} apart; final poses {firm_gap:.3g} apart where "
+          f"BA observes them {WELL_OBSERVED}+ times, {gap:.3g} on the "
+          f"{int((~firm).sum())} observed fewer times", flush=True)
     return out, gap
 
 
@@ -707,6 +788,7 @@ def phase12(dev, rows):
     p, p_ms, _ = slam_route_runs(seq, "plain", dev)
     check(len(seq["edges"]) == 13, f"slam: {len(seq['edges'])} edges, want 13")
     ates, gap = hold_slam_routes(k, p, seq, "slam")
+    check(gap < 1e-3, f"slam: final poses of the routes {gap} apart")  # every pose, here
     for name, a in ates.items():
         check(a["registered"] == 13, f"slam: {a['registered']} of 13 edges registered ({name})")
         check(a["ate"] < fe.SLAM_ATE_BOUND, f"slam: final ATE {a['ate']} ({name})")
@@ -978,24 +1060,23 @@ class Recorded:
 
 def batch_stages(P, Q, params):
     """`register_batch` on the batch and on each pair alone, each stage's
-    outputs recorded (degrees, pool, solve, scores, the refine's `umeyama`
-    and inlier masks): for every stage but the refine, whether each pair's
-    slice has the same bits alone as in the batch; the refine's largest
-    difference."""
+    outputs recorded (degrees, pool, solve, scores, the refine's R, t and
+    inlier mask): for every stage, whether each pair's slice has the same
+    bits alone as in the batch."""
     import torch
 
     from saccot_tpu_torch import register_batch
-    from saccot_tpu_torch.engine import sac_cot, score as score_mod, triangles as tri_mod
+    from saccot_tpu_torch.engine import triangles as tri_mod
     from saccot_tpu_torch.kernels import compat, score, solve3
+    from saccot_tpu_torch.kernels import refine as krefine
 
     def flat(x):
         return [x] if isinstance(x, torch.Tensor) else [t for y in x for t in flat(y)]
 
     keep = lambda a, k, out: flat(out)
     stages = ((compat, "degrees"), (tri_mod, "triangle_pool_from_points"),
-              (solve3, "solve3"), (score, "score_hypotheses"), (sac_cot, "umeyama"),
-              (score_mod, "inlier_mask"))
-    same, refine_diff = {}, 0.0
+              (solve3, "solve3"), (score, "score_hypotheses"), (krefine, "refine"))
+    same = {}
     with contextlib.ExitStack() as stack:
         calls = {name: stack.enter_context(Recorded(mod, name, keep)) for mod, name in stages}
         register_batch(P, Q, params)
@@ -1007,11 +1088,8 @@ def batch_stages(P, Q, params):
             for name, c in calls.items():
                 for got, want in zip(c, whole[name]):
                     for x, y in zip(got, want):
-                        if name == "umeyama":
-                            refine_diff = max(refine_diff, (x[0] - y[b]).abs().max().item())
-                        else:
-                            same[name] = same.get(name, True) and torch.equal(x[0], y[b])
-    return same, refine_diff
+                        same[name] = same.get(name, True) and torch.equal(x[0], y[b])
+    return same
 
 
 # The kernels each command-line run must launch: rows 1-4 (the estimator at
@@ -1024,8 +1102,8 @@ def phase13(dev, rows, ref, card):
     each JSON line parsed and checked. The five run configurations at their
     own sizes (bunny 4 pairs x 8,192 points; u3m 10 views, 45 pairs;
     threedmatch 32 pairs x 2,048 in shards of 16, T bit for bit phase 5's;
-    kitti 2 pairs x 50,000, each stage before the refine bit for bit phase
-    7's, T within 1e-5 (`batch_stages`); slam 10 scans, 13
+    kitti 2 pairs x 50,000, each stage and T bit for bit phase 7's
+    (`batch_stages`); slam 10 scans, 13
     edges, ATE equal to phase 12's); files (two PLY views of 8,192 points
     with --gt), sequence --loops (8 KITTI scans of 30,000 points on a closed
     circle), external (8 fragments of 5,000 keypoints, --out-log read
@@ -1112,18 +1190,16 @@ def phase13(dev, rows, ref, card):
             m = run("kitti", ["kitti"], expect=KITTI_ROWS)
         T_gap = float(np.abs(np.stack(kT).astype(np.float32) - ref["kitti_T"]).max())
         # register_pair (a batch of one) against phase 7's batch of two: every
-        # kernel, the pool and the inlier masks give the same bits; the
-        # refine's torch sums over N=50,000 rows (`umeyama`) add in another
-        # order for one row than for two, so T may move by float32 ulps.
-        same, refine_diff = batch_stages(ref["kitti_P"], ref["kitti_Q"], ref["kitti_params"])
+        # kernel, the pool and the refine (its sums fixed by N alone) give the
+        # same bits, so T is phase 7's bit for bit.
+        same = batch_stages(ref["kitti_P"], ref["kitti_Q"], ref["kitti_params"])
         print(f"  cli kitti: recall {m['recall']:.4f}, {m['n_corr']} correspondences a pair; "
               f"register_pair's T within {T_gap:.3g} of phase 7's batch of 2; alone vs in the "
-              f"batch, same bits: {same}, the refine's umeyama within {refine_diff:.3g}",
-              flush=True)
+              f"batch, same bits: {same}", flush=True)
         check(m["pairs"] == 2 and m["recall"] == 1.0, f"cli kitti: {m}")
         check(all(same.values()) and len(same) == 5,
-              f"cli kitti: a stage before the refine depends on the batch: {same}")
-        check(T_gap <= 1e-5, f"cli kitti: T {T_gap} from phase 7's")
+              f"cli kitti: a stage depends on the batch: {same}")
+        check(T_gap == 0.0, f"cli kitti: T {T_gap} from phase 7's")
 
         m = run("slam", ["slam"])
         print(f"  cli slam: {m['edges_registered']} of {m['edges']} edges registered, ATE "
@@ -1539,6 +1615,9 @@ def phase15(dev, rows, fast, exact, P, Q, T_gt, results):
                 n = launched[counters[s]]
                 check((n == 0) if s == plain else (n > 0),
                       f"{where}: {counters[s]} launched {n} times")
+            # The refine follows `impl` ("kernel" in every mix).
+            check(launched["refine"] == 2 * params.refine_iters + 1,
+                  f"{where}: the refine launched {launched['refine']} passes")
             R, t, inl = staged_mix(P, Q, params, routes, where)
             check(torch.equal(R, res.R) and torch.equal(t, res.t) and torch.equal(inl, res.inliers),
                   f"{where}: the staged mix differs from register_batch")
@@ -1561,7 +1640,7 @@ def phase15(dev, rows, fast, exact, P, Q, T_gt, results):
           "the other stages' kernels registers it", flush=True)
     for r in rows:
         if r["name"] in ("compat_degrees", "anchor_topb_candidates", "anchor_topb_topt",
-                         "solve3", "score"):
+                         "solve3", "score", "refine"):
             r["phase15_launches"] = total[r["name"]]
     print(f"phase 15 ok ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
@@ -1685,6 +1764,7 @@ def main():
     from saccot_tpu_torch.engine import triangles as tri_mod
     from saccot_tpu_torch.kernels import _build
     from saccot_tpu_torch.kernels import compat as kcompat
+    from saccot_tpu_torch.kernels import refine as krefine
     from saccot_tpu_torch.kernels import score as kscore
     from saccot_tpu_torch.kernels import solve3 as ksolve
     from saccot_tpu_torch.kernels import triangles as ktri
@@ -1797,6 +1877,16 @@ def main():
         roofline.scoring_model(1000, r9_ref.shape[2], 128),
         device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, P, Q,
                                                                    fast.inlier_tau)))
+
+    # The refine (row 12) from the plain scores' best valid hypothesis.
+    scores = kscore.score_hypotheses_reference(r9_ref, t3_ref, P, Q, fast.inlier_tau)[0]
+    err, Rb, tb = hold_refine(P, Q, scores, pool.valid, r9_ref, t3_ref, exact, "the bench point")
+    rargs = (P, Q, Rb, tb, exact, torch.ones(P.shape[:2], device=dev))
+    row("refine", "saccot_tpu_torch/csrc/refine.cu",
+        "none: the refine ran in XLA (saccot_tpu/engine/sac_cot.py)", err,
+        time_ms(lambda: krefine.refine(*rargs)), time_ms(lambda: krefine.refine_reference(*rargs)),
+        "refine", roofline.refine_model(1000, exact.refine_iters, 128),
+        device_ms=kernel_device_ms(lambda: krefine.refine(*rargs)))
     print("phase 3 ok", flush=True)
 
     # -- phase 4: the main path at the bench point ---------------------------
@@ -2016,6 +2106,15 @@ def main():
         roofline.scoring_model(50000, r9_ref.shape[2], 2),
         device_ms=kernel_device_ms(lambda: kscore.score_hypotheses(r9_ref, t3_ref, PK, QK,
                                                                    kp.inlier_tau)))
+    kscores = kscore.score_hypotheses_reference(*kargs)[0]
+    err, Rb, tb = hold_refine(PK, QK, kscores, kpool.valid, r9_ref, t3_ref, kp, "kitti")
+    rargs = (PK, QK, Rb, tb, kp, torch.ones(PK.shape[:2], device=dev))
+    row("refine_large_n", "saccot_tpu_torch/csrc/refine.cu",
+        "none: the refine ran in XLA (saccot_tpu/engine/sac_cot.py)", err,
+        time_ms(lambda: krefine.refine(*rargs), reps=10),
+        time_ms(lambda: krefine.refine_reference(*rargs), **big), "refine",
+        roofline.refine_model(50000, kp.refine_iters, 2),
+        device_ms=kernel_device_ms(lambda: krefine.refine(*rargs)))
     weighted_ms = time_ms(lambda: kscore.score_hypotheses(*kargs, mode="weighted"), reps=10)
     print(f"  score weighted at kitti: {weighted_ms:.4f} ms", flush=True)
     # The SP shard's points (the first 25,000 of each pair).
@@ -2227,6 +2326,11 @@ def main():
         check(worst < 0.1, f"SP ring: rotation {worst} deg from the single rank")
         check(r["sp_ring_launches"]["ring_degrees"] == 2,
               f"SP ring: {r['sp_ring_launches']['ring_degrees']} ring steps, want 2")
+        # The sharded refine: two passes a fit, the fit after the all-reduces,
+        # and the last mask pass.
+        got = (r["sp_ring_launches"]["refine"], r["sp_ring_launches"]["refine_fit"])
+        want = (2 * KITTI_PARAMS.refine_iters + 1, KITTI_PARAMS.refine_iters)
+        check(got == want, f"SP ring: refine passes and fits {got}, want {want}")
     print(f"  (c) SP ring kitti: recall 1.0, inliers {ranks[0]['sp_ring'].num_inliers.tolist()}, "
           f"worst rotation {worst:.3g} deg from one rank, "
           f"{max(r['sp_ring_ms_per_pair'] for r in ranks):.3f} ms/pair"
@@ -2239,33 +2343,22 @@ def main():
               "SP 3DMatch: the direct-form degree route was not taken")
     print(f"  (d) SP 3DMatch: recall {rec:.4f} (one rank {rec_k:.4f})", flush=True)
     # (e) The per-pair forms: register_pair_tp on pair PAIR_TP of the TP
-    # batch, register_pair_sp on pair PAIR_SP of the 3DMatch SP batch. Each
-    # field the refine does not reach (inliers and their count, the best
-    # score, the pool's count, success) bit for bit the batch form's row; R,
-    # t and T within 1e-5, since the refine's torch sums add in an order set
-    # by the batch (on the card a batch of 1 or 2 differs from one of 16 or
-    # more, within 1.2e-7 at these points; ROADMAP queue 3). TP holds one
+    # batch, register_pair_sp on pair PAIR_SP of the 3DMatch SP batch. Every
+    # field bit for bit the batch form's row: every kernel, the refine's
+    # included, sums in an order fixed by the shard's N alone. TP holds one
     # rank's bits, so register_pair_tp equals register_pair on one rank.
     one_tp = register_pair(P[PAIR_TP], Q[PAIR_TP], fast)
-    refined = ("R", "t", "T")
-    gaps = []
     for r in ranks:
         for form, batch_res, b in (("pair_tp", r["tp"], PAIR_TP), ("pair_sp", r["sp_3dm"], PAIR_SP)):
             got = r[form]
             for f, x, y in zip(got._fields, got, batch_res):
-                if f in refined:
-                    gaps.append(float(np.abs(x - y[b]).max()))
-                    check(gaps[-1] <= 1e-5, f"{form} on rank {r['rank']}: {f} {gaps[-1]} from "
-                                            f"the batch form's row {b}")
-                else:
-                    check(np.array_equal(x, y[b]),
-                          f"{form} on rank {r['rank']}: {f} differs from the batch form's row {b}")
+                check(np.array_equal(x, y[b]),
+                      f"{form} on rank {r['rank']}: {f} differs from the batch form's row {b}")
         check(all(np.array_equal(x, y.cpu().numpy()) for x, y in zip(r["pair_tp"], one_tp)),
               f"pair_tp on rank {r['rank']}: differs from register_pair on one rank")
     print(f"  (e) register_pair_tp (pair {PAIR_TP}) and register_pair_sp (pair {PAIR_SP}): "
-          f"every field the refine does not reach bit for bit the batch forms' rows, R/t/T "
-          f"within {max(gaps):.3g}; register_pair_tp bit for bit register_pair on one rank",
-          flush=True)
+          f"every field bit for bit the batch forms' rows; register_pair_tp bit for bit "
+          f"register_pair on one rank", flush=True)
     dist_launches = {k: sum(r[f"{case}_launches"][k] for r in ranks for case in
                             ("sp_ring", "sp_3dm")) for k in _build.LAUNCHES}
     print(f"  launches summed over ranks (SP runs): {dist_launches}", flush=True)

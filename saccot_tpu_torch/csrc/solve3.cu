@@ -57,10 +57,6 @@ using saccot::add_rn;
 using saccot::mul_rn;
 using saccot::sub_rn;
 
-__device__ __forceinline__ float one_minus_2(float x, float y) {  // 1 - 2 * (x + y)
-    return sub_rn(1.0f, mul_rn(2.0f, add_rn(x, y)));
-}
-
 // The rigid fit of one triple: centroids, H, Horn's quaternion, R (row-major
 // r[9]) and t = qbar - R pbar.
 __device__ __forceinline__ void fit3(const float p[3][3], const float q[3][3], float r[9],
@@ -87,21 +83,7 @@ __device__ __forceinline__ void fit3(const float p[3][3], const float q[3][3], f
     }
     float qv[4];
     saccot::quaternion_from_cross_covariance(h, qv);
-    const float qw = qv[0], qx = qv[1], qy = qv[2], qz = qv[3];
-    r[0] = one_minus_2(mul_rn(qy, qy), mul_rn(qz, qz));
-    r[1] = mul_rn(2.0f, sub_rn(mul_rn(qx, qy), mul_rn(qw, qz)));
-    r[2] = mul_rn(2.0f, add_rn(mul_rn(qx, qz), mul_rn(qw, qy)));
-    r[3] = mul_rn(2.0f, add_rn(mul_rn(qx, qy), mul_rn(qw, qz)));
-    r[4] = one_minus_2(mul_rn(qx, qx), mul_rn(qz, qz));
-    r[5] = mul_rn(2.0f, sub_rn(mul_rn(qy, qz), mul_rn(qw, qx)));
-    r[6] = mul_rn(2.0f, sub_rn(mul_rn(qx, qz), mul_rn(qw, qy)));
-    r[7] = mul_rn(2.0f, add_rn(mul_rn(qy, qz), mul_rn(qw, qx)));
-    r[8] = one_minus_2(mul_rn(qx, qx), mul_rn(qy, qy));
-    for (int c = 0; c < 3; ++c) {
-        const float rp = add_rn(add_rn(mul_rn(r[3 * c], pbar[0]), mul_rn(r[3 * c + 1], pbar[1])),
-                                mul_rn(r[3 * c + 2], pbar[2]));
-        t[c] = sub_rn(qbar[c], rp);
-    }
+    saccot::rigid_from_quaternion(qv, pbar, qbar, r, t);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)

@@ -51,13 +51,14 @@ class BaselineResult(NamedTuple):
     best_score: torch.Tensor   # [batch] float32
 
 
-def _score_refine(r9, t3, P, Q, m, kmask, params: SacCotParams, valid, score_fn):
+def _score_refine(r9, t3, P, Q, m, kmask, params: SacCotParams, valid, score_fn,
+                  impl: str = "kernel"):
     """Shared tail: score the K hypotheses (SoA r9 [batch, 9, K], t3
     [batch, 3, K]), take the first maximum of the valid ones and refine it:
-    the estimator's own `best_hypothesis` and `refine`."""
+    the estimator's own `best_hypothesis` and `refine` (by `impl`'s route)."""
     scores, _ = score_fn(r9, t3, P, Q, params.inlier_tau, mask=kmask, mode=params.scoring)
     best_score, Rb, tb = best_hypothesis(scores, valid, r9, t3)
-    Rb, tb, inl = refine(P, Q, Rb, tb, params, m)
+    Rb, tb, inl = refine(P, Q, Rb, tb, params, m, impl=impl)
     return BaselineResult(
         R=Rb, t=tb, T=transform_from_rt(Rb, tb), inliers=inl,
         num_inliers=inl.sum(dim=1, dtype=torch.int32), best_score=best_score,
@@ -156,7 +157,7 @@ def ransac_register_batch(
     triples = _random_triples(u, mask=m)
     r9, t3 = solve_fn(P, Q, triples)
     valid = torch.ones((batch, K), dtype=torch.bool, device=P.device)
-    return _score_refine(r9, t3, P, Q, m, kmask, params, valid, score_fn)
+    return _score_refine(r9, t3, P, Q, m, kmask, params, valid, score_fn, impl)
 
 
 def edge_guided_register_batch(
@@ -177,7 +178,7 @@ def edge_guided_register_batch(
         u = priority_field(seeds, batch, params.max_hypotheses, N, P.device)
     triples, valid = _edge_triples(P, Q, m, kmask, params, u, degrees_fn)
     r9, t3 = solve_fn(P, Q, triples)
-    return _score_refine(r9, t3, P, Q, m, kmask, params, valid, score_fn)
+    return _score_refine(r9, t3, P, Q, m, kmask, params, valid, score_fn, impl)
 
 
 def _one(fn, P, Q, params, mask, seed, u, impl) -> BaselineResult:

@@ -6,15 +6,16 @@ first-maximum argmax -> `refine_iters` weighted-Umeyama passes on the
 inlier set. The JAX
 package's `vmap` becomes the explicit leading batch axis of every tensor.
 
-`impl="kernel"` routes the four hot stages through the kernel wrappers
-(the CUDA kernels for CUDA tensors, their plain versions for CPU tensors),
-which pick their kernel by N (no cap); `impl="plain"` runs the plain
-PyTorch versions on any device. `compat_impl`, `pool_impl`, `solve_impl`
-and `score_impl` set one stage's route each ("kernel" or "plain", `impl`
-where one is not given), as the JAX package's four selectors do: the stages
-hand each other tensors on the device they run on, so one stage can run by
-its plain version and the rest by their kernels. A kernel stage on a CUDA
-tensor launches its kernel or raises; it never falls back.
+`impl="kernel"` routes the four hot stages and the refine through the
+kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
+for CPU tensors), which pick their kernel by N (no cap); `impl="plain"`
+runs the plain PyTorch versions on any device. `compat_impl`, `pool_impl`,
+`solve_impl` and `score_impl` set one stage's route each ("kernel" or
+"plain", `impl` where one is not given; the refine follows `impl`), as the
+JAX package's four selectors do: the stages hand each other tensors on the
+device they run on, so one stage can run by its plain version and the rest
+by their kernels. A kernel stage on a CUDA tensor launches its kernel or
+raises; it never falls back.
 
 The sharded bodies (`_register_pair`'s `corr_axis` / `hyp_axis` branches
 in the JAX package) run over `torch.distributed` groups:
@@ -50,10 +51,10 @@ from torch.profiler import record_function
 
 from saccot_tpu_torch.dist.collectives import all_gather, all_reduce, group_rank, group_size
 from saccot_tpu_torch.dist.ring import degrees_ring
-from saccot_tpu_torch.engine import score as score_mod
 from saccot_tpu_torch.engine import triangles as tri_mod
-from saccot_tpu_torch.engine.svd3 import transform_from_rt, umeyama
+from saccot_tpu_torch.engine.svd3 import transform_from_rt
 from saccot_tpu_torch.kernels import compat as compat_k
+from saccot_tpu_torch.kernels import refine as refine_k
 from saccot_tpu_torch.kernels import score as score_k
 from saccot_tpu_torch.kernels import solve3 as solve3_k
 from saccot_tpu_torch.kernels.triangles import MAX_NEIGHBORS
@@ -124,21 +125,18 @@ def refine(
     params: SacCotParams,
     m: torch.Tensor,
     corr_group=None,
+    impl: str = "kernel",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`params.refine_iters` weighted-Umeyama fits on the inlier set of
     (R, t), each followed by its inlier pass; a pair with fewer than 3
     inliers keeps its previous fit. m [batch, N]: the correspondence mask
-    (ones where there is none). Returns R, t and the inlier mask [batch, N]."""
-    inl = score_mod.inlier_mask(R, t, P, Q, params.inlier_tau, mask=m)
-    for _ in range(params.refine_iters):
-        w = inl.to(torch.float32) * m
-        n = all_reduce(w.sum(dim=1), corr_group)
-        Rf, tf = umeyama(P, Q, w=w, group=corr_group)
-        keep = n >= 3.0  # keep the previous fit when < 3 inliers
-        R = torch.where(keep[:, None, None], Rf, R)
-        t = torch.where(keep[:, None], tf, t)
-        inl = score_mod.inlier_mask(R, t, P, Q, params.inlier_tau, mask=m)
-    return R, t, inl
+    (ones where there is none). Returns R, t and the inlier mask [batch, N].
+    impl "kernel": `kernels/refine.refine` (`csrc/refine.cu` on CUDA
+    tensors, the plain version on CPU ones); "plain": the plain version."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    fn = refine_k.refine if impl == "kernel" else refine_k.refine_reference
+    return fn(P, Q, R, t, params, m, corr_group)
 
 
 def _register_batch(
@@ -223,7 +221,7 @@ def _register_batch(
             best_score, Rb, tb = g_scores[g_best, rows], g_R[g_best, rows], g_t[g_best, rows]
 
     with _stage("refine"):
-        Rb, tb, inl = refine(P, Q, Rb, tb, params, m, corr_group)
+        Rb, tb, inl = refine(P, Q, Rb, tb, params, m, corr_group, impl=impl)
 
     with _stage("result"):
         success = pool.valid.any(dim=1)

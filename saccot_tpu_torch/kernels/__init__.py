@@ -8,6 +8,7 @@ for CUDA tensors and takes the plain version only for CPU tensors.
 - `triangles.anchor_neighbors`  <- csrc/anchor_topb.cu    (TPU: _anchor_topb_kernel)
 - `solve3.solve3`               <- csrc/solve3.cu         (TPU: _solve_kernel + XLA Horn)
 - `score.score_hypotheses`      <- csrc/score.cu          (TPU: _score_kernel)
+- `refine.refine`               <- csrc/refine.cu         (TPU: none, the refine ran in XLA)
 
 `_build` compiles `csrc/*.cu` on first use and keeps the launch counters.
 """

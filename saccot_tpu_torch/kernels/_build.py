@@ -9,11 +9,12 @@ a hash of the sources, so an edited source triggers a rebuild and an
 unchanged one is reused.
 
 Every entry point returns `cudaGetLastError()` right after its launch;
-`check` raises on a non-zero code. `LAUNCHES` holds thirteen plain integers,
+`check` raises on a non-zero code. `LAUNCHES` holds fifteen plain integers,
 one per kernel (three for the fused anchor kernel: its neighbour, candidate
 and top-T modes; two for the two-sided degree kernel: its own route and the
 direct-form one; two for the timing variants of `compat_ops.cu`: one per
-form), which a wrapper bumps exactly where it launches its kernel.
+form; two for the refine: its passes and the separate fit of the sharded
+refine), which a wrapper bumps exactly where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ LAUNCHES: Dict[str, int] = {
     "ring_degrees": 0,            # one ring step of the correspondence-sharded degrees
     "compat_ops_two_sided": 0,    # timing variants of the degree loop (compat_ops.cu)
     "compat_ops_tri": 0,
+    "refine": 0,                  # a pass of the refine (csrc/refine.cu)
+    "refine_fit": 0,              # the sharded refine's fit, after its all-reduce
 }
 
 _P = ctypes.c_void_p
@@ -64,6 +67,8 @@ _SIGNATURES = {
     "saccot_score": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
     "saccot_ring_degrees": [_P] * 3 + [_I] * 3 + [_L, _L, _F, _F, _F, _I, _I, _P, _P, _P],
     "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_I, _I, _P, _P],
+    "saccot_refine_pass": [_I, _I] + [_P] * 12 + [_I, _I, _I, _F, _P],
+    "saccot_refine_fit": [_P] * 6 + [_I, _P],
     "saccot_empty": [_P],
 }
 

@@ -66,9 +66,10 @@ def sm_count(dev: torch.device) -> int:
 # The tickets of the launches that combine their splits in the last block
 # (csrc/score.cu, the two-sided loop of csrc/degree_loops.cuh,
 # csrc/anchor_topb_stream.cu, which keeps its per-anchor floors after its
-# tickets), one buffer per (device, stream): each launch leaves every ticket
-# it takes at 0, so the buffer is zeroed once, when it is made or outgrown,
-# and launches on one stream, which run in turn, share it.
+# tickets, and the passes of csrc/refine.cu), one buffer per (device,
+# stream): each launch leaves every ticket it takes at 0, so the buffer is
+# zeroed once, when it is made or outgrown, and launches on one stream,
+# which run in turn, share it.
 _TICKETS: dict = {}
 
 

@@ -8,9 +8,11 @@ configuration) it registers the whole batch, then pairs 5 and 7 alone
 (`register_pair`), and prints for each field whether it has the batch
 row's bits and the largest difference; then, for batches of the first 1, 2,
 16 and 64 pairs, on how many rows T has the whole batch's bits. Every
-kernel sums in an order fixed by its shapes alone; the refine's torch sums
-(`engine/svd3.umeyama`) do not, so R, t and T may move by rounding. Runs on
-the card unless given --device cpu.
+kernel, the refine's (`csrc/refine.cu`) included, sums in an order fixed
+by N alone, so on the card every field is expected to keep its bits; on
+the CPU the plain refine's torch sums (`engine/svd3.umeyama`) may not, so
+R, t and T may move by rounding there. Runs on the card unless given
+--device cpu.
 """
 
 from __future__ import annotations

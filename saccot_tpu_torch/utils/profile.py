@@ -184,11 +184,13 @@ def range_counts(events, prefix: str, batches: int) -> dict:
 
 
 def kernel_device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
-    """Device ms of one launch of each hand-written kernel that `fn`
-    launches once, summed: `torch.profiler` over `reps` calls after one
-    warm-up call, each kernel's device time over the launches the profiler
-    recorded (it may drop some). A reading that recorded none of them (it
-    can drop all) is taken again, at most `attempts` times in all."""
+    """Device ms of the hand-written kernels of one call of `fn`:
+    `torch.profiler` over `reps` calls after one warm-up call, each kernel
+    (each instance of a template) its device time over the launches the
+    profiler recorded (it may drop some), times the launches a call made
+    (recorded over `reps`, rounded, at least one). A reading that recorded
+    none of them (it can drop all) is taken again, at most `attempts` times
+    in all."""
     fn()
     torch.cuda.synchronize()
     names = own_kernel_names()
@@ -196,7 +198,8 @@ def kernel_device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
         rows = [r for r in _profile(fn, reps)
                 if (m := _KERNEL_NAME.search(r.key)) and m.group(1) in names]
         if rows:
-            return sum(_device_us(r) / r.count for r in rows) / 1e3
+            return sum(_device_us(r) / r.count * max(1, round(r.count / reps))
+                       for r in rows) / 1e3
     raise RuntimeError(f"the profiler recorded no launch of the port's kernels in {attempts} "
                        "readings")
 
