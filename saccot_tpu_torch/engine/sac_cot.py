@@ -40,11 +40,19 @@ slice of it), solve, score, select (the best hypothesis and TP's champion
 gather), refine and result (the success masks, T and the counts). A
 profile of any call reads each stage's host and device time
 (`utils.profile.profile_call(..., ranges=STAGE_PREFIX)`).
+
+A masked call also records its valid correspondences per pair,
+`mask.sum(1)` as an int64 device tensor, in `VALID_COUNTS`: the last
+`VALID_COUNTS_KEPT` masked calls, most recent last. A masked kernel computes
+its padded rows too, so a roofline of the work a deployment needs reads
+these counts, not the padded N. Recording launches one reduction and never
+waits for the card; an unmasked call records nothing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from collections import deque
+from typing import Deque, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -66,6 +74,22 @@ STAGE_PREFIX = "saccot/"
 
 def _stage(name: str):
     return record_function(STAGE_PREFIX + name)
+
+
+class ValidCounts(NamedTuple):
+    """One masked call's record in `VALID_COUNTS`."""
+    n_valid: torch.Tensor  # [batch] int64 on the call's device: mask.sum(1)
+    local: bool            # SP: the counts of this rank's shard of the points only
+
+
+VALID_COUNTS_KEPT = 64
+VALID_COUNTS: Deque[ValidCounts] = deque(maxlen=VALID_COUNTS_KEPT)
+
+
+def _record_valid_counts(mask: torch.Tensor, local: bool) -> None:
+    """Keep a masked call's valid correspondences per pair in `VALID_COUNTS`,
+    on the device: no host sync, no read on the host."""
+    VALID_COUNTS.append(ValidCounts(mask.sum(dim=1, dtype=torch.int64), local))
 
 
 class RegistrationResult(NamedTuple):
@@ -166,6 +190,8 @@ def _register_batch(
              if mask is None else mask.to(torch.float32))
         # None masks (not all-ones) let the kernels skip their mask reads.
         kmask = None if mask is None else m
+        if mask is not None:
+            _record_valid_counts(mask, local=corr_group is not None)
 
         if corr_group is None:
             P_full, Q_full, kmask_full = P, Q, kmask

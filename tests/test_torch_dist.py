@@ -189,6 +189,15 @@ def test_register_batch_sp_matches_register_pair_sp(probs, world2, case):
         assert not world2[1]["masked"].inliers[0][-32:].any()
 
 
+def test_sp_records_the_valid_counts_of_the_local_shard(probs, world2):
+    """A masked SP call keeps the valid count of this rank's shard, marked local."""
+    mask = probs["masked"][2]
+    for r, res in enumerate(world2):
+        counts, local = res["masked_counts"]
+        assert local is True
+        assert counts.tolist() == [int(mask[r * N // 2:(r + 1) * N // 2].sum())]
+
+
 def test_register_batch_tp_matches_register_pair_tp(probs, world2):
     """TP over two ranks vs `register_pair_tp` (hyp = 2): the same
     registration, num_inliers, best score and inliers

@@ -17,7 +17,7 @@ from saccot_tpu_torch.dist.ring import degrees_ring
 from saccot_tpu_torch.dist.sweep import make_sweep_fn, run_sweep
 from saccot_tpu_torch.engine import triangles as ttri
 from saccot_tpu_torch.engine.sac_cot import (
-    register_batch_sp, register_batch_tp, register_pair_sp, register_pair_tp,
+    VALID_COUNTS, register_batch_sp, register_batch_tp, register_pair_sp, register_pair_tp,
 )
 from saccot_tpu_torch.kernels import _build
 from saccot_tpu_torch.kernels import compat as kcompat
@@ -55,6 +55,8 @@ def world2(probs, params, ring_params, fast_params):
     for key, prm in (("allgather", params), ("ring", ring_params), ("masked", params),
                      ("anchor", fast_params)):
         out[key] = _sp(probs[key], prm, g, r, 2)
+        if key == "masked":
+            out["masked_counts"] = (VALID_COUNTS[-1].n_valid.numpy(), VALID_COUNTS[-1].local)
         P, Q, m = (_shard(x, r, 2)[0] for x in probs[key])
         out["pair_" + key] = register_pair_sp(P, Q, prm, g, mask_loc=m)
     P, Q = (torch.from_numpy(x)[None] for x in probs["anchor"][:2])
