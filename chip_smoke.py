@@ -45,10 +45,13 @@ Phases (any failure exits non-zero before the result lines are printed):
   6. the large-N kernels against their plain versions at the kitti shapes
      (batch 2, N=50,000, A=512, B=16, T=4, K=2048): the symmetric degree
      kernel (also bit-identical across two calls, and against the two-sided
-     kernel), the streamed top-B (also bit-identical across two calls and
-     for each half of the anchors run alone, and to the fused kernel at
-     N=3,000 under three plans, with and without masks: one chunk, chunks of
-     1,024, and chunks of 7 columns, fewer than B); the card's launch floor
+     kernel; masked as the padded cells send it, at N=50,000 and 2,500 with
+     one pair of no valid entry: masked rows 0, two calls bit for bit, and
+     its count of skipped tile pairs), the streamed top-B (also
+     bit-identical across two calls and for each half of the anchors run
+     alone, and to the fused kernel at N=3,000 under three plans, with and
+     without masks: one chunk, chunks of 1,024, and chunks of 7 columns,
+     fewer than B); the card's launch floor
      (an empty kernel, one thread); the candidate top-T under every W of
      its sweep (the same bits, also for each half of the anchors alone, and
      at N=3,000 the fused kernel's top-T mode's, with and without masks);
@@ -382,6 +385,41 @@ def hold_refine(P, Q, scores, valid, r9, t3, params, where):
           f"; R, t within {err:.3g} of the plain refine, {flips} inlier flips, bit for bit "
           f"across two calls and for the last pair alone", flush=True)
     return err, R, t
+
+
+def hold_tri_skips(P, Q, params, keep, where):
+    """The symmetric degree kernel under masks padded at the end, pair b
+    keeping its first keep[b] points (0: no valid entry), where its blocks
+    skip every tile pair past the pair's last valid tile: within rtol 1e-5
+    / atol 2e-3 of the plain version, 0 at every masked row, the same bits
+    in two calls, and the tile pairs it counts in `TILE_PAIRS_SKIPPED`
+    T (T + 1) / 2 - k (k + 1) / 2 a pair, of T tiles of 128 with k of them
+    holding a valid entry."""
+    import torch
+
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.kernels import compat as kcompat
+
+    n = P.shape[1]
+    mask = (torch.arange(n, device=P.device)[None]
+            < torch.tensor(keep, device=P.device)[:, None]).float()
+    kcompat.TILE_PAIRS_SKIPPED.clear()
+    _build.reset_launches()
+    deg = kcompat.degrees(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    again = kcompat.degrees(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    check(_build.launches()["compat_degrees_tri"] == 2,
+          f"masked degrees at {where} did not take the tri route")
+    ref = kcompat.degrees_reference(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    torch.testing.assert_close(deg, ref, rtol=1e-5, atol=2e-3)
+    check(not deg[mask == 0].any(), f"compat_degrees_tri at {where}: a masked row is not 0")
+    check(torch.equal(deg, again), f"compat_degrees_tri at {where}: two masked calls differ")
+    tiles = -(-n // 128)
+    want = [tiles * (tiles + 1) // 2 - k * (k + 1) // 2 for k in (-(-m // 128) for m in keep)]
+    got = [c.tolist() for c in kcompat.TILE_PAIRS_SKIPPED]
+    check(got == [want, want], f"compat_degrees_tri at {where}: skipped {got}, not {want}")
+    print(f"  compat_degrees_tri masked at {where} (N={n}, keeping {list(keep)}): max |err| "
+          f"{(deg - ref).abs().max().item():.3g}, masked rows 0, bit for bit across two calls, "
+          f"skipped {want} of {tiles * (tiles + 1) // 2} tile pairs a pair", flush=True)
 
 
 def hold_weighted(P, Q, params, T_gt, criterion, where):
@@ -1975,6 +2013,11 @@ def main():
     print(f"  compat_degrees two-sided kernel at the same shape: {two_sided_ms:.4f} ms, "
           f"max |tri - two-sided| {(deg - deg_2s).abs().max().item():.3g} "
           f"({degree_plan_str(2, 50000, 50000)})", flush=True)
+    # Masked, as the padded cells send it: a block with no valid row or
+    # column writes zero sums and leaves (`hold_tri_skips`).
+    hold_tri_skips(PK, QK, kp, (41001, 25000), "kitti")
+    hold_tri_skips(PK[:, :2500].contiguous(), QK[:, :2500].contiguous(), kp, (0, 2177),
+                   "the 3DLoMatch shape")
 
     # Streamed top-B (row 6): scores within 1e-6 of the plain version (the
     # same predicate, the same operations) and indices equal off ties; ties

@@ -18,17 +18,22 @@
 // in registers, column sums by a warp butterfly into a [batch, tiles, N]
 // scratch, then a second pass that adds the tiles in order. Deterministic:
 // the top-A anchor choice is decided by degree order, so run-to-run bit noise
-// would change the pool; no float atomics.
+// would change the pool; no float atomics. With a mask, a tile pair with no
+// valid row or no valid column writes zero sums and leaves (a pair padded at
+// its end skips every tile pair past its last valid tile), and counts itself
+// in skipped[b] (integer atomics).
 #include "degree_loops.cuh"
 
-// part is scratch of batch * n_tiles * N floats, n_tiles = ceil(N / 128).
+// part is scratch of batch * n_tiles * N floats, n_tiles = ceil(N / 128);
+// skipped is null or batch zeroed uint64 counters (used only with a mask).
 extern "C" int saccot_compat_degrees_tri(const void* P, const void* Q, const void* mask,
-                                         void* part, void* deg, int batch, int N,
-                                         int n_tiles, float tau, float inv_tau,
+                                         void* part, void* deg, void* skipped, int batch,
+                                         int N, int n_tiles, float tau, float inv_tau,
                                          float min_sep, void* stream) {
     return launch_tri<true>(static_cast<const float*>(P), static_cast<const float*>(Q),
                             static_cast<const float*>(mask), static_cast<float*>(part),
                             static_cast<float*>(deg), batch, N, n_tiles,
                             saccot::CompatScore{tau, inv_tau, min_sep},
-                            static_cast<cudaStream_t>(stream));
+                            static_cast<cudaStream_t>(stream),
+                            static_cast<unsigned long long*>(skipped));
 }

@@ -3,8 +3,9 @@
 // variants (compat_ops.cu). Each loop is a template over
 //   VALUE   a functor: the value one pair adds to the sums, from the row's and
 //           the column's P and Q coordinates (CompatScore in production);
-//   MASKED  the production-only steps: the row and column masks and the
-//           i != j test.
+//   MASKED  the production-only steps: the row and column masks, the
+//           i != j test and, in the tri loop, skipping the tile pairs the
+//           mask leaves empty.
 // So a variant differs from the production kernel only by its VALUE and the
 // steps MASKED leaves out, and a variant whose VALUE is CompatScore gives
 // the production degrees of unmasked input bit for bit.
@@ -67,6 +68,12 @@
 //     every entry of the scratch part[b, t, n] = sum over j in tile t of
 //     value(n, j) is written exactly once, by one block.
 //   pass 2: deg[b, n] = sum over t of part[b, t, n], in tile order.
+//   A masked block first votes on its tile pair's mask: with no valid row
+//   or no valid column every value it would add is multiplied by a zero
+//   mask, so it writes the +0.0f sums instead, reads no coordinate and
+//   counts itself in skipped[b]. Pass 2 adds those zeros in tile order, so
+//   deg keeps its bits; padding at the end of a pair leaves every tile pair
+//   past its last valid tile empty, a scattered mask none.
 // The ragged edge is masked by index, never by sentinel coordinates.
 #pragma once
 
@@ -353,7 +360,7 @@ template <bool MASKED, class Value>
 __global__ void __launch_bounds__(kTriThreads)
 tri_degrees_kernel(const float* __restrict__ P, const float* __restrict__ Q,
                    const float* __restrict__ mask, float* __restrict__ part, int N, int n_tiles,
-                   Value value) {
+                   Value value, unsigned long long* __restrict__ skipped) {
     __shared__ float4 cp[kTile];   // column tile: P coordinates, mask in .w
     __shared__ float4 cq[kTile];   // column tile: Q coordinates
     __shared__ float colsum[kWarps][kTile];
@@ -365,17 +372,31 @@ tri_degrees_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     const float* Pb = P + static_cast<long long>(b) * N * 3;
     const float* Qb = Q + static_cast<long long>(b) * N * 3;
     const float* mb = mask ? mask + static_cast<long long>(b) * N : nullptr;
+    float* pb = part + static_cast<long long>(b) * n_tiles * N;
 
     const int r = ti * kTile + threadIdx.x;
     const bool row_ok = r < N;
+    const int c = tj * kTile + threadIdx.x;   // the column this thread stages
+    const bool col_ok = c < N;
+    const float mr = mb ? mb[row_ok ? r : 0] : 1.0f;
+    const float mc = mb ? mb[col_ok ? c : 0] : 1.0f;
+    if constexpr (MASKED) {
+        if (mb) {   // uniform over the block, so every thread reaches both votes
+            const int rows_valid = __syncthreads_or(row_ok && mr != 0.0f);
+            const int cols_valid = __syncthreads_or(col_ok && mc != 0.0f);
+            if (!rows_valid || !cols_valid) {
+                if (!diag && col_ok) pb[static_cast<long long>(ti) * N + c] = 0.0f;
+                if (row_ok) pb[static_cast<long long>(tj) * N + r] = 0.0f;
+                if (skipped && threadIdx.x == 0) atomicAdd(skipped + b, 1ull);
+                return;
+            }
+        }
+    }
     const long long ro = static_cast<long long>(row_ok ? r : 0) * 3;
     const float px = Pb[ro], py = Pb[ro + 1], pz = Pb[ro + 2];
     const float qx = Qb[ro], qy = Qb[ro + 1], qz = Qb[ro + 2];
-    const float mr = mb ? mb[row_ok ? r : 0] : 1.0f;
     {
-        const int c = tj * kTile + threadIdx.x;
-        const long long co = static_cast<long long>(c < N ? c : 0) * 3;
-        const float mc = mb ? mb[c < N ? c : 0] : 1.0f;
+        const long long co = static_cast<long long>(col_ok ? c : 0) * 3;
         cp[threadIdx.x] = make_float4(Pb[co], Pb[co + 1], Pb[co + 2], mc);
         cq[threadIdx.x] = make_float4(Qb[co], Qb[co + 1], Qb[co + 2], 0.0f);
     }
@@ -390,15 +411,15 @@ tri_degrees_kernel(const float* __restrict__ P, const float* __restrict__ Q,
 #pragma unroll
         for (int q = 0; q < 32; ++q) {
             const int t = g * 32 + q;
-            const int c = tj * kTile + t;
+            const int j = tj * kTile + t;
             const float4 a = cp[t];
             const float4 d = cq[t];
             float s = value(px, py, pz, qx, qy, qz, a.x, a.y, a.z, d.x, d.y, d.z);
             if constexpr (MASKED) {
-                if (!row_ok || c >= N || c == r) s = 0.0f;
+                if (!row_ok || j >= N || j == r) s = 0.0f;
                 v[q] = s * (mr * a.w);
             } else {
-                if (!row_ok || c >= N) s = 0.0f;
+                if (!row_ok || j >= N) s = 0.0f;
                 v[q] = s;
             }
             acc += v[q];
@@ -414,11 +435,9 @@ tri_degrees_kernel(const float* __restrict__ P, const float* __restrict__ Q,
         }
     }
 
-    float* pb = part + static_cast<long long>(b) * n_tiles * N;
     if (!diag) {
         __syncthreads();
-        const int c = tj * kTile + threadIdx.x;
-        if (c < N) {
+        if (col_ok) {
             float cs = colsum[0][threadIdx.x];
             for (int w = 1; w < kWarps; ++w) cs += colsum[w][threadIdx.x];
             pb[static_cast<long long>(ti) * N + c] = cs;
@@ -442,13 +461,16 @@ __global__ void degree_sum_kernel(const T* __restrict__ part, T* __restrict__ de
 }
 
 // part is scratch of batch * n_tiles * N floats, n_tiles = ceil(N / 128).
+// skipped (MASKED with a mask; may be null): batch zeroed counters, to which
+// each batch element's empty tile pairs are added.
 template <bool MASKED, class Value>
 int launch_tri(const float* P, const float* Q, const float* mask, float* part, float* deg,
-               int batch, int N, int n_tiles, Value value, cudaStream_t s) {
+               int batch, int N, int n_tiles, Value value, cudaStream_t s,
+               unsigned long long* skipped = nullptr) {
     if (n_tiles != (N + kTile - 1) / kTile) return static_cast<int>(cudaErrorInvalidValue);
     const long long pairs = static_cast<long long>(n_tiles) * (n_tiles + 1) / 2;
     tri_degrees_kernel<MASKED, Value><<<dim3(static_cast<unsigned>(pairs), batch), kTriThreads,
-                                        0, s>>>(P, Q, mask, part, N, n_tiles, value);
+                                        0, s>>>(P, Q, mask, part, N, n_tiles, value, skipped);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     degree_sum_kernel<float><<<dim3((N + 255) / 256, batch), 256, 0, s>>>(part, deg, N, n_tiles);

@@ -46,7 +46,10 @@ A masked call also records its valid correspondences per pair,
 `VALID_COUNTS_KEPT` masked calls, most recent last. A masked kernel computes
 its padded rows too, so a roofline of the work a deployment needs reads
 these counts, not the padded N. Recording launches one reduction and never
-waits for the card; an unmasked call records nothing.
+waits for the card; an unmasked call records nothing. On the symmetric
+degree route (N > 2,048, a card) the kernel skips the tile pairs its mask
+leaves empty and keeps their count per pair in
+`kernels/compat.TILE_PAIRS_SKIPPED`.
 """
 
 from __future__ import annotations

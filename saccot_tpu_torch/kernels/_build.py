@@ -59,7 +59,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "saccot_compat_degrees": [_P] * 7 + [_I, _I, _I, _L, _F, _F, _F, _I, _I, _P, _P, _P],
-    "saccot_compat_degrees_tri": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _P],
+    "saccot_compat_degrees_tri": [_P] * 6 + [_I] * 3 + [_F, _F, _F, _P],
     "saccot_anchor_topb": [_P] * 10 + [_I] * 8 + [_F, _F, _F, _P],
     "saccot_anchor_topb_stream": [_P] * 11 + [_I] * 6 + [_F, _F, _F, _P],
     "saccot_candidate_topt": [_P] * 7 + [_I] * 6 + [_F, _F, _F, _P],

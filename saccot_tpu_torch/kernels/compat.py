@@ -22,7 +22,8 @@ plain version of every route). It never falls back from one to the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from collections import deque
+from typing import Deque, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +140,14 @@ def split_scratch(plan: DegreePlan, R: int, dev: torch.device, stream: int):
 TRI_MIN_ROWS = 2048
 _TRI_TILE = 128  # tile edge of csrc/compat_degrees_tri.cu
 
+# A masked launch of the symmetric kernel keeps the tile pairs it skipped per
+# batch element ([batch] int64 on the card, never waited on; read back by
+# `scripts/exp_tri_skip.py`): the last TILE_PAIRS_SKIPPED_KEPT masked
+# launches, most recent last. An unmasked launch skips nothing and keeps
+# nothing.
+TILE_PAIRS_SKIPPED_KEPT = 64
+TILE_PAIRS_SKIPPED: Deque[torch.Tensor] = deque(maxlen=TILE_PAIRS_SKIPPED_KEPT)
+
 
 def _is_symmetric(P_rows, Q_rows, P_cols, Q_cols, row_offset, mask_rows, mask_cols) -> bool:
     """Rows and columns are the same points and masks: each condition is
@@ -240,7 +249,9 @@ def degrees_tri(
     `csrc/compat_degrees_tri.cu`; the plain version on CPU tensors.
 
     Deterministic: pair weights are summed in a fixed order (no atomics), so
-    two calls on the same input return the same bits.
+    two calls on the same input return the same bits. A masked launch skips
+    the tile pairs with no valid row or column and keeps their count in
+    `TILE_PAIRS_SKIPPED`.
     """
     if not P.is_cuda:
         return degrees_reference(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
@@ -255,13 +266,16 @@ def degrees_tri(
         raise ValueError(f"degrees_tri takes N <= {_TRI_TILE * 65535} (got {N})")
     # Per-tile partial degrees, summed in tile order by the kernel's second pass.
     part = torch.empty((batch, n_tiles, N), dtype=torch.float32, device=P.device)
+    skipped = None if mask is None else torch.zeros(batch, dtype=torch.int64, device=P.device)
     lib = _build.library()
     rc = lib.saccot_compat_degrees_tri(
-        ptr(P), ptr(Q), ptr(mask), ptr(part), ptr(deg), batch, N, n_tiles,
+        ptr(P), ptr(Q), ptr(mask), ptr(part), ptr(deg), ptr(skipped), batch, N, n_tiles,
         float(params.compat_tau), float(np.float32(1.0 / params.compat_tau)),
         float(params.min_separation), stream_of(deg),
     )
     _build.check(rc, "compat_degrees_tri")
     _build.LAUNCHES["compat_degrees_tri"] += 1
     debug.check_kernel("compat_degrees_tri", deg)
+    if skipped is not None:
+        TILE_PAIRS_SKIPPED.append(skipped)
     return deg

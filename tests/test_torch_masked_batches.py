@@ -9,6 +9,15 @@ valid count in `sac_cot.VALID_COUNTS` (at most `VALID_COUNTS_KEPT` calls);
 an unmasked call keeps nothing. On the card (skipped here: it needs a CUDA
 device) the kernel route holds the reference to the cell's limits, and the
 recording alone runs under `torch.cuda.set_sync_debug_mode("error")`.
+
+The symmetric degree kernel skips the tile pairs a mask leaves with no valid
+row or column: T (T + 1) / 2 - k (k + 1) / 2 of T tiles of 128 with k
+holding a valid entry (checked here on hand-made masks against the tile
+pairs counted one by one). On the card, under padding at the end, an empty
+pair, an all-valid and a scattered mask at N = 2,500 and 50,000, its degrees
+are the bits of the same call cut after the last valid tile, the plain
+version's to the degree tolerance, zero at every masked entry, and the count
+it keeps in `compat_k.TILE_PAIRS_SKIPPED` is that number.
 """
 
 import json
@@ -22,6 +31,7 @@ from regbench.reference import saccot as reference
 from saccot_tpu_torch.engine import sac_cot
 from saccot_tpu_torch.kernels import compat as compat_k
 from saccot_tpu_torch.kernels import triangles as tri_k
+from saccot_tpu_torch.utils.convert import KITTI_PARAMS, KITTI_SEED, kitti_problem_batch
 from saccot_tpu_torch.utils.params import SacCotParams
 
 torch.set_num_threads(2)
@@ -123,3 +133,127 @@ def test_recording_on_the_card_syncs_nothing():
         torch.cuda.set_sync_debug_mode(0)
     rec = sac_cot.VALID_COUNTS[-1]
     assert rec.n_valid.is_cuda and rec.n_valid.tolist() == [120, 300]
+
+
+# -- the symmetric degree kernel's empty tile pairs --------------------------
+
+TILE = 128
+
+
+def _layout_mask(layout, n, device):
+    """A [2, n] float mask: "tail" keeps a first n_b of each pair (never a
+    whole number of tiles), "empty_pair" keeps nothing of pair 0 and a tail
+    of pair 1, "all_valid" everything, "every_7th" all but every 7th entry."""
+    ids = torch.arange(n, device=device)
+    keep = {2500: (2177, 2090), 50000: (41001, 30001)}[n]
+    if layout == "tail":
+        return (ids[None] < torch.tensor(keep, device=device)[:, None]).float()
+    if layout == "empty_pair":
+        return (ids[None] < torch.tensor((0, keep[0]), device=device)[:, None]).float()
+    mask = torch.ones((2, n), device=device)
+    if layout == "every_7th":
+        mask[:, ::7] = 0
+    return mask
+
+
+def _skipped_by_formula(mask):
+    """T (T + 1) / 2 - k (k + 1) / 2 per pair: T tiles of 128, k of them
+    holding a nonzero mask entry."""
+    batch, n = mask.shape
+    n_tiles = -(-n // TILE)
+    valid = torch.nn.functional.pad(mask.cpu() != 0, (0, n_tiles * TILE - n))
+    k = valid.view(batch, n_tiles, TILE).any(dim=2).sum(dim=1)
+    return (n_tiles * (n_tiles + 1) // 2 - k * (k + 1) // 2).tolist()
+
+
+def _skipped_by_tiles(mask):
+    """The tile pairs (ti <= tj) with no valid row in ti or no valid column
+    in tj, counted one by one."""
+    n_tiles = -(-mask.shape[1] // TILE)
+    out = []
+    for row in mask.cpu():
+        valid = [bool(row[t * TILE:(t + 1) * TILE].any()) for t in range(n_tiles)]
+        out.append(sum(not (valid[ti] and valid[tj])
+                       for ti in range(n_tiles) for tj in range(ti, n_tiles)))
+    return out
+
+
+def _from_tiles(n, tiles, batch=1):
+    """A [batch, n] mask whose valid entries are the given tiles' first."""
+    mask = torch.zeros((batch, n))
+    for t in tiles:
+        mask[:, t * TILE] = 1.0
+    return mask
+
+
+@pytest.mark.parametrize("mask, expected", [
+    (torch.zeros((1, 300)), [6]),
+    (torch.ones((1, 300)), [0]),
+    (_from_tiles(300, [1]), [5]),
+    (_from_tiles(300, [0, 2]), [3]),
+    ((torch.arange(300) < 129).float()[None], [3]),
+    ((torch.arange(300) % 7 != 0).float()[None], [0]),
+    ((torch.arange(2500) < 2177).float()[None], [39]),
+    ((torch.arange(50000) < 25000).float()[None], [76636 - 19306]),
+    (torch.stack([torch.zeros(300), torch.ones(300)]), [6, 0]),
+    (torch.tensor([[0.0, 0.5, -1.0]]), [0]),
+], ids=["none", "all", "one_tile", "two_scattered_tiles", "tail_129", "every_7th",
+        "tail_2177_of_2500", "half_of_50000", "two_pairs", "nonzero_not_one"])
+def test_the_skipped_tile_pairs_follow_the_mask(mask, expected):
+    assert _skipped_by_formula(mask) == expected == _skipped_by_tiles(mask)
+
+
+def test_the_plain_degrees_keep_no_skip_count():
+    P, Q, _, mask = _problems("cpu", pairs=2, n=300, n_valid=(100, 200))
+    compat_k.TILE_PAIRS_SKIPPED.clear()
+    compat_k.degrees_tri(P, Q, SMALL, mask=mask.float())
+    assert len(compat_k.TILE_PAIRS_SKIPPED) == 0
+
+
+def _tri_case(n):
+    """Two pairs at N = n on the card with their parameters: the 3DLoMatch
+    generator at 2,500, the kitti problems at 50,000."""
+    if n == 50000:
+        P, Q, _ = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1], device="cuda", n=n)
+        return P, Q, KITTI_PARAMS
+    P, Q = _problems("cuda", pairs=2, n=n, n_valid=None)[:2]
+    return P, Q, SacCotParams(**PRM)
+
+
+@needs_cuda
+@pytest.mark.parametrize("layout", ["tail", "empty_pair", "all_valid", "every_7th"])
+@pytest.mark.parametrize("n", [2500, 50000])
+def test_empty_tile_pairs_are_skipped_to_the_same_bits_on_the_card(n, layout):
+    P, Q, params = _tri_case(n)
+    mask = _layout_mask(layout, n, "cuda")
+    compat_k.TILE_PAIRS_SKIPPED.clear()
+    deg = compat_k.degrees_tri(P, Q, params, mask=mask)
+    skipped = compat_k.TILE_PAIRS_SKIPPED[-1]
+    # Cut after the last valid tile: the tiles beyond add only +0.0, in order.
+    last = int((mask != 0).any(dim=0).nonzero().max()) + 1
+    cut = min(n, -(-last // TILE) * TILE)
+    assert cut > compat_k.TRI_MIN_ROWS
+    part = compat_k.degrees_tri(P[:, :cut].contiguous(), Q[:, :cut].contiguous(), params,
+                                mask=mask[:, :cut].contiguous())
+    assert torch.equal(deg[:, :cut], part) and not deg[:, cut:].any()
+    ref = compat_k.degrees_reference(P, Q, P, Q, params, mask_rows=mask, mask_cols=mask)
+    torch.testing.assert_close(deg, ref, rtol=1e-5, atol=2e-3)
+    assert not deg.isnan().any() and not deg[mask == 0].any()
+    assert skipped.dtype == torch.int64 and skipped.tolist() == _skipped_by_formula(mask)
+
+
+@needs_cuda
+def test_an_unmasked_launch_keeps_no_skip_count_and_a_masked_one_syncs_nothing():
+    P, Q, params = _tri_case(2500)
+    mask = _layout_mask("tail", 2500, "cuda")
+    compat_k.degrees_tri(P, Q, params, mask=mask)   # builds the library
+    compat_k.TILE_PAIRS_SKIPPED.clear()
+    compat_k.degrees_tri(P, Q, params)
+    assert len(compat_k.TILE_PAIRS_SKIPPED) == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        compat_k.degrees_tri(P, Q, params, mask=mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert compat_k.TILE_PAIRS_SKIPPED[-1].is_cuda
