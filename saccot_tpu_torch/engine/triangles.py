@@ -9,8 +9,8 @@ kernel route (`impl="pallas"`):
      (kernels/triangles.anchor_neighbors); above it the neighbours are
      streamed (anchor_neighbors_stream) and the candidates scored from the
      neighbours' coordinates: by `candidate_topt` in the fast config, which
-     reads them from P and Q by node id, by `_pool_from_neighbors` in torch,
-     on gathered coordinates, in the exact one;
+     reads them from P and Q by node id, in torch on gathered coordinates
+     (`kernels.triangles.candidates_from_points`) in the exact one;
   3. fast config (`per_anchor_candidates = T > 0`): each anchor's top-T
      candidates, then a global top-K over the A*T of them (the identity when
      A*T <= K);
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from saccot_tpu_torch.dist.collectives import all_gather, group_rank, group_size
@@ -156,7 +155,8 @@ def triangle_pool_from_points(
         return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
                                     params)
     nbr_s, nbr_idx, cand = fn(*args, **kw, emit_candidates=True)
-    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N)
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N,
+                                     tri_kernels.pair_slots(B, P.device))
 
 
 def _gather_anchors(arrs, shard: bool, group):
@@ -172,20 +172,28 @@ def _rank_neighbor_candidates(
     cand: torch.Tensor,      # [batch, A, Pairs] candidate scores, -1 = invalid
     params: SacCotParams,
     n_nodes: int,
+    slots,                   # kernels.triangles.pair_slots(B, device)
 ) -> TrianglePool:
-    """(exact dedup) -> ranking of the candidates (anchor, b1, b2), b1 < b2
-    in `np.triu_indices(B, k=1)` order."""
-    batch, A, B = nbr_idx.shape
-    b1, b2 = (torch.as_tensor(x, device=anchors.device) for x in np.triu_indices(B, k=1))
-    i = anchors[:, :, None].expand(batch, A, b1.shape[0])
-    j = nbr_idx[:, :, b1]
-    k = nbr_idx[:, :, b2]
-    dedup_done = False
+    """(exact dedup, canonical triples) -> global top-K of the candidates
+    (anchor, b1, b2) over the pair slots."""
+    b1, b2 = slots
+    j, k = nbr_idx[:, :, b1], nbr_idx[:, :, b2]
     if params.dedup_triangles:
         dup = _mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2, n_nodes)
         cand = torch.where(dup, -1.0, cand)
-        dedup_done = True
-    return _rank_candidates(i, j, k, cand, params, dedup_done=dedup_done)
+    batch = cand.shape[0]
+    score = cand.reshape(batch, -1)
+    fi, fj, fk = (x.reshape(batch, -1) for x in (anchors[:, :, None].expand_as(j), j, k))
+    if not params.dedup_triangles:
+        # Solve and scoring are permutation-invariant: keep (anchor, j, k).
+        return _select_topk((fi, fj, fk), score, params)
+    a0 = torch.minimum(fi, fj)
+    b0 = torch.maximum(fi, fj)
+    lo2 = torch.minimum(b0, fk)
+    hi = torch.maximum(b0, fk)
+    lo = torch.minimum(a0, lo2)
+    mid = torch.maximum(a0, lo2)
+    return _select_topk((lo, mid, hi), score, params)
 
 
 def _pool_from_neighbors(
@@ -200,34 +208,27 @@ def _pool_from_neighbors(
     """Candidate triangles, then ranked: the exact config above MAX_N_FUSED,
     and `triangle_pool`.
 
-    s_jk is scored from the neighbours' coordinates when P and Q are given,
-    by the shared predicate (`engine.compat.pair_score` on direct
-    differences; the JAX version takes `jnp.linalg.norm`, so a score within
-    an ulp of tau or min_separation may decide differently), else read from
-    the dense S [batch, N, N].
+    s_jk is scored from the neighbours' coordinates when P and Q are given
+    (direct differences; the JAX version takes `jnp.linalg.norm`, so a score
+    within an ulp of tau or min_separation may decide differently), else
+    read from the dense S [batch, N, N], whose diagonal may make an anchor
+    its own neighbour (the id tests drop those candidates).
     """
-    batch, A, B = nbr_idx.shape
-    b1, b2 = (torch.as_tensor(x, device=nbr_idx.device) for x in np.triu_indices(B, k=1))
-    i = anchors[:, :, None]
-    j = nbr_idx[:, :, b1]
-    k = nbr_idx[:, :, b2]
-    s_ij = nbr_s[:, :, b1]
-    s_ik = nbr_s[:, :, b2]
+    batch, _, B = nbr_idx.shape
+    slots = tri_kernels.pair_slots(B, nbr_idx.device)
     if P is not None and Q is not None:
-        nbr_p, nbr_q = tri_kernels.gather_neighbors(P, Q, nbr_idx)
-        s_jk = pair_scores(nbr_p[:, :, b1], nbr_p[:, :, b2], nbr_q[:, :, b1], nbr_q[:, :, b2],
-                           params)
-        s_jk = torch.where(j != k, s_jk, 0.0)
         n_nodes = P.shape[1]
+        cand = tri_kernels.candidates_from_points(nbr_s, nbr_idx, P, Q, params.compat_tau,
+                                                  params.min_separation, slots, anchors)
     else:
         if S is None:
             raise ValueError("_pool_from_neighbors needs either the points or the dense S")
         n_nodes = S.shape[-1]
+        j, k = nbr_idx[:, :, slots[0]], nbr_idx[:, :, slots[1]]
         s_jk = torch.gather(S.reshape(batch, -1), 1,
                             (j * n_nodes + k).reshape(batch, -1)).reshape(j.shape)
-    valid = ((s_ij > 0) & (s_ik > 0) & (s_jk > 0) & (i != j) & (i != k) & (j != k))
-    cand = torch.where(valid, s_ij + s_ik + s_jk, -1.0)
-    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, n_nodes)
+        cand = tri_kernels.candidate_scores(nbr_s, nbr_idx, slots, s_jk, anchors)
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, n_nodes, slots)
 
 
 def _mark_cross_anchor_duplicates(
@@ -265,35 +266,6 @@ def _mark_cross_anchor_duplicates(
               & V3[..., :, None]).any(dim=-2)                       # [batch, A, B, T]
     return ((gate[:, :, b1] & in_row[:, :, b1, b2])
             | (gate[:, :, b2] & in_row[:, :, b2, b1]))
-
-
-def _rank_candidates(
-    i: torch.Tensor,       # [batch, A, Pairs] anchor node ids
-    j: torch.Tensor,       # [batch, A, Pairs] neighbour-1 node ids
-    k: torch.Tensor,       # [batch, A, Pairs] neighbour-2 node ids
-    score: torch.Tensor,   # [batch, A, Pairs] candidate scores, -1 = invalid
-    params: SacCotParams,
-    dedup_done: bool = False,
-) -> TrianglePool:
-    """(optional canonicalisation) -> global top-K of a candidate set."""
-    batch = score.shape[0]
-    score = score.reshape(batch, -1)
-    fi, fj, fk = (x.reshape(batch, -1) for x in (i, j, k))
-    if not params.dedup_triangles:
-        # Solve and scoring are permutation-invariant: keep (anchor, j, k).
-        return _select_topk((fi, fj, fk), score, params)
-    if not dedup_done:
-        raise ValueError(
-            "dedup_triangles=True requires the caller to invalidate cross-"
-            "anchor duplicates (_mark_cross_anchor_duplicates) and pass "
-            "dedup_done=True")
-    a0 = torch.minimum(fi, fj)
-    b0 = torch.maximum(fi, fj)
-    lo2 = torch.minimum(b0, fk)
-    hi = torch.maximum(b0, fk)
-    lo = torch.minimum(a0, lo2)
-    mid = torch.maximum(a0, lo2)
-    return _select_topk((lo, mid, hi), score, params)
 
 
 def _pool_from_preranked(

@@ -6,8 +6,8 @@ Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
     N <= MAX_N_FUSED: the anchor row lives in shared memory; one warp per
     anchor, `anchor_plan` of them a block), in both of its output modes:
       `emit_candidates=True`: the score of every candidate triangle
-      (anchor, b1, b2), b1 < b2 in `np.triu_indices(B, k=1)` order, -1 when
-      invalid (the exact config);
+      (anchor, b1, b2) in `pair_slots` order, -1 when invalid (the exact
+      config);
       `top_t > 0`: each anchor's top-T candidates with decoded neighbour
       node ids (the fast config);
   - `_anchor_topb_stream_kernel` by `csrc/anchor_topb_stream.cu`
@@ -229,9 +229,16 @@ def anchor_neighbors_reference(
             nbr_s, nbr_idx, P, Q, top_t, compat_tau, min_separation)
     if not emit_candidates:
         return nbr_s, nbr_idx
-    b1, b2 = np.triu_indices(B, k=1)
-    cand3 = _candidate_grid(nbr_s, *gather_neighbors(P, Q, nbr_idx), compat_tau, min_separation)
-    return nbr_s, nbr_idx, cand3[:, :, b1, b2]
+    return nbr_s, nbr_idx, candidates_from_points(nbr_s, nbr_idx, P, Q, compat_tau,
+                                                  min_separation, pair_slots(B, P.device),
+                                                  anchors)
+
+
+def pair_slots(B: int, device):
+    """The candidate layout, which csrc/common.cuh `candidate_grid` walks too:
+    (b1, b2) int64 on `device`, the pairs b1 < b2 of B selections in
+    `np.triu_indices(B, k=1)`'s row-major order."""
+    return tuple(torch.triu_indices(B, B, 1, device=device))
 
 
 def gather_neighbors(P: torch.Tensor, Q: torch.Tensor, nbr_idx: torch.Tensor):
@@ -243,18 +250,28 @@ def gather_neighbors(P: torch.Tensor, Q: torch.Tensor, nbr_idx: torch.Tensor):
             torch.gather(Q, 1, nidx).reshape(batch, A, B, 3))
 
 
-def _candidate_grid(nbr_s, nbr_p, nbr_q, compat_tau, min_separation) -> torch.Tensor:
-    """[batch, A, B, B] candidate scores (s_b1 + s_b2) + s_b1b2 where b1 < b2
-    and all three edges are positive, -1 elsewhere (selections with score
-    <= 0 are invalid)."""
-    B = nbr_s.shape[-1]
-    s_jk = pair_score(pair_distances(nbr_p[:, :, :, None], nbr_p[:, :, None, :]),
-                      pair_distances(nbr_q[:, :, :, None], nbr_q[:, :, None, :]),
-                      compat_tau, min_separation)                  # [batch, A, B, B]
-    s1, s2 = nbr_s[..., :, None], nbr_s[..., None, :]
-    upper = torch.ones(B, B, dtype=torch.bool, device=nbr_s.device).triu(1)
-    valid = (s1 > 0) & (s2 > 0) & (s_jk > 0) & upper
-    return torch.where(valid, s1 + s2 + s_jk, -1.0)
+def candidate_scores(nbr_s, nbr_idx, slots, s_jk, anchors=None) -> torch.Tensor:
+    """[batch, A, Pairs] scores s_b1 + s_b2 + s_jk of the candidates (anchor,
+    b1, b2) over `slots`, -1 unless all three edges are positive and the node
+    ids distinct; `anchors` None where the selections exclude their anchor."""
+    b1, b2 = slots
+    j, k = nbr_idx[:, :, b1], nbr_idx[:, :, b2]
+    s_ij, s_ik = nbr_s[:, :, b1], nbr_s[:, :, b2]
+    valid = (s_ij > 0) & (s_ik > 0) & (s_jk > 0) & (j != k)
+    if anchors is not None:
+        valid &= (anchors[:, :, None] != j) & (anchors[:, :, None] != k)
+    return torch.where(valid, s_ij + s_ik + s_jk, -1.0)
+
+
+def candidates_from_points(nbr_s, nbr_idx, P, Q, compat_tau, min_separation, slots,
+                           anchors=None) -> torch.Tensor:
+    """`candidate_scores`, s_jk scored from the neighbours' coordinates: the
+    one plain scorer of candidates."""
+    b1, b2 = slots
+    nbr_p, nbr_q = gather_neighbors(P, Q, nbr_idx)
+    s_jk = pair_score(pair_distances(nbr_p[:, :, b1], nbr_p[:, :, b2]),
+                      pair_distances(nbr_q[:, :, b1], nbr_q[:, :, b2]), compat_tau, min_separation)
+    return candidate_scores(nbr_s, nbr_idx, slots, s_jk, anchors)
 
 
 def candidate_topt_reference(
@@ -267,10 +284,14 @@ def candidate_topt_reference(
     min_separation: float,
 ):
     """Plain version of `candidate_topt` (same arguments and returns): the
-    neighbours' coordinates gathered, then the candidate grid ranked."""
+    candidates ranked in the kernel's B x B grid, -1 off the pairs (its slot
+    order decides ties and the ids of invalid entries)."""
     batch, A, B = nbr_s.shape
-    cand3 = _candidate_grid(nbr_s, *gather_neighbors(P, Q, nbr_idx), compat_tau, min_separation)
-    v, slot = topk_stable(cand3.reshape(batch, A, B * B), top_t)
+    slots = pair_slots(B, nbr_s.device)
+    grid = nbr_s.new_full((batch, A, B, B), -1.0)
+    grid[:, :, slots[0], slots[1]] = candidates_from_points(nbr_s, nbr_idx, P, Q, compat_tau,
+                                                            min_separation, slots)
+    v, slot = topk_stable(grid.reshape(batch, A, B * B), top_t)
     cand_j = torch.gather(nbr_idx, 2, slot // B)
     cand_k = torch.gather(nbr_idx, 2, slot % B)
     return torch.clamp_min(v, -1.0), cand_j, cand_k
@@ -426,8 +447,6 @@ def anchor_neighbors(
       cand [batch, A, B(B-1)/2]                         with emit_candidates,
       cand_s, cand_j, cand_k [batch, A, T]              with top_t = T > 0.
     """
-    if top_t:
-        emit_candidates = True
     if not P.is_cuda:
         return anchor_neighbors_reference(
             P, Q, anchors, num_neighbors, compat_tau, min_separation, mask=mask,

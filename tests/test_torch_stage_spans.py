@@ -9,9 +9,12 @@ import pytest
 import torch
 from torch.autograd.profiler_util import FunctionEvent
 
+from saccot_tpu_torch.cli.configs import CONFIGS
 from saccot_tpu_torch.engine import sac_cot
 from saccot_tpu_torch.utils import profile
-from saccot_tpu_torch.utils.convert import problem_batch
+from saccot_tpu_torch.utils.convert import (
+    KITTI_PARAMS, KITTI_SEED, kitti_problem_batch, problem_batch,
+)
 from saccot_tpu_torch.utils.params import SacCotParams
 from saccot_tpu_torch.utils.profiling import profiler
 
@@ -98,3 +101,29 @@ def test_range_counts_follow_the_launch_not_the_name():
                                                 sync_ms=0.0))
     halves = profile.range_counts(events, sac_cot.STAGE_PREFIX, 2)
     assert halves["pool"]["syncs"] == 0.5 and halves["refine"]["device_ops"] == 0.5
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device: it counts waits on the card")
+@pytest.mark.parametrize("config", ["kitti", "threedmatch"])
+def test_pool_waits_on_nothing_on_card(config):
+    """The pool enqueues its whole stage: no blocking runtime call inside
+    `saccot/pool`, at N = 50,000 (exact, two pairs) and at the threedmatch
+    shape (exact, N = 2,048), where its pair table once came from the host
+    by a pageable copy that waited for the card."""
+    if config == "kitti":
+        P, Q, _ = kitti_problem_batch([KITTI_SEED, KITTI_SEED + 1])
+        params = KITTI_PARAMS
+    else:
+        cfg = CONFIGS["threedmatch"]
+        P, Q, _ = problem_batch([cfg.seed, cfg.seed + 1], n=cfg.n_corr,
+                                outlier_ratio=cfg.outlier_ratio, noise=cfg.noise)
+        params = cfg.params
+    sac_cot.register_batch(P, Q, params)   # builds the kernels
+    torch.cuda.synchronize()
+    with profiler() as prof:
+        sac_cot.register_batch(P, Q, params)
+        torch.cuda.synchronize()
+    pool = profile.range_counts(prof.events(), sac_cot.STAGE_PREFIX, 1)["pool"]
+    assert pool["device_ops"] > 0
+    assert pool["syncs"] == 0, pool

@@ -106,6 +106,35 @@ def test_dense_pool_matches_jax_and_oracle(prob, dedup, s_jk):
         assert (tri[:, 0] < tri[:, 1]).all() and (tri[:, 1] < tri[:, 2]).all()
 
 
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("s_jk", ["S", "points"])
+def test_dense_pool_with_a_diagonal_matches_jax(prob, dedup, s_jk):
+    """A dense S with a nonzero diagonal makes each anchor its own first
+    neighbour, so only the id tests keep it out of its own triangles: no
+    valid triple names a node twice, and the pool is the JAX package's on
+    the same S, with a budget that holds every candidate (scores within
+    1e-5; from the points, a candidate whose s_jk sits within rounding of
+    tau or min_separation may flip, as in tests/test_torch_large_n.py)."""
+    A, B = SMALL.num_anchors, SMALL.neighbors_per_anchor
+    params = dataclasses.replace(SMALL, dedup_triangles=dedup,
+                                 max_hypotheses=A * B * (B - 1) // 2)
+    S = np.array(jcompat.compat_matrix(jnp.asarray(prob["P"]), jnp.asarray(prob["Q"]),
+                                        _jax(params)))
+    np.fill_diagonal(S, 2.0)
+    pts = (prob["P"], prob["Q"]) if s_jk == "points" else ()
+    got = ttri.triangle_pool(torch.from_numpy(S)[None], params,
+                             *(torch.from_numpy(x)[None] for x in pts))
+    ref = jtri.triangle_pool(jnp.asarray(S), _jax(params), *(jnp.asarray(x) for x in pts))
+    got_map = {tuple(t): s for t, s, v in zip(*(np.asarray(x[0]) for x in got)) if v}
+    ref_map = {tuple(t): s for t, s, v in zip(*(np.asarray(x) for x in ref)) if v}
+    assert len(ref_map) > 50
+    assert all(len(set(t)) == 3 for t in got_map)
+    flips = set(ref_map) ^ set(got_map)
+    assert len(flips) <= (len(ref_map) // 200 if pts else 0), flips
+    for tri in set(ref_map) & set(got_map):
+        assert abs(ref_map[tri] - got_map[tri]) <= 1e-5
+
+
 def test_dense_pool_needs_points_or_s(prob):
     Pt = torch.from_numpy(prob["P"])[None]
     with pytest.raises(ValueError, match="dense S"):

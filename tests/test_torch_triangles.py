@@ -102,6 +102,17 @@ def test_anchor_neighbors_match_pallas(case, mode):
             np.testing.assert_array_equal(got[4][b][clear], ref[4][clear])
 
 
+@pytest.mark.parametrize("n_sel", [2, 3, 12, 16, 32])
+def test_pair_slots_are_the_upper_pairs(n_sel):
+    """The candidate layout, made on the device, is `np.triu_indices(B, k=1)`
+    as int64."""
+    b1, b2 = ktri.pair_slots(n_sel, torch.device("cpu"))
+    ref = np.triu_indices(n_sel, k=1)
+    assert b1.dtype == b2.dtype == torch.int64
+    np.testing.assert_array_equal(b1.numpy(), ref[0])
+    np.testing.assert_array_equal(b2.numpy(), ref[1])
+
+
 def test_dedup_mask_equals_jax(case):
     """The gather-based dedup mask equals the JAX one-hot version exactly,
     on the same selections."""
