@@ -41,7 +41,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      kernels and through the plain versions on the card; the fused anchor
      and score kernels at its shapes (256 anchors, B=16, N=2048; 2,048
      hypotheses a pair), held as in phase 3, and the solve under every
-     block size;
+     block size; the pool's ranking kernel (row 13) on the fused kernel's
+     candidates, with and without dedup, bit for bit its plain version,
+     its duplicate count the plain mask's sum, there and tiled to the
+     1,623 pairs of a threedmatch.sweep call, where it is timed;
   6. the large-N kernels against their plain versions at the kitti shapes
      (batch 2, N=50,000, A=512, B=16, T=4, K=2048): the symmetric degree
      kernel (also bit-identical across two calls, and against the two-sided
@@ -51,7 +54,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      bit-identical across two calls and for each half of the anchors run
      alone, and to the fused kernel at N=3,000 under three plans, with and
      without masks: one chunk, chunks of 1,024, and chunks of 7 columns,
-     fewer than B); the card's launch floor
+     fewer than B); the pool's ranking kernel held as in phase 5 on the
+     streamed selections' candidates, there and tiled to the 64 pairs of a
+     kitti.sweep call; the card's launch floor
      (an empty kernel, one thread); the candidate top-T under every W of
      its sweep (the same bits, also for each half of the anchors alone, and
      at N=3,000 the fused kernel's top-T mode's, with and without masks);
@@ -156,9 +161,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      exact, once for each single-stage mix (one of compat_impl, pool_impl,
      solve_impl and score_impl "plain", the rest "kernel"): recall >= 0.98,
      the plain stage launching no kernel and the others theirs, each stage
-     held to the version the mix names on the mix's own inputs, and the
-     solve_impl="plain" mix bit for bit the all-kernel T of phase 4; B = 40
-     refused by the pool's kernel and run by the plain pool.
+     held to the version the mix names on the mix's own inputs (the exact
+     pool's ranking kernel launched once a call, none with the plain pool),
+     and the solve_impl="plain" mix bit for bit the all-kernel T of phase 4;
+     B = 40 refused by the pool's kernel and run by the plain pool.
 Each kernel row carries its bound: the larger of its FP32 operations over
 the card's FP32 instruction rate and its bytes over the memory rate
 (`bound_ms` of the row's model in `saccot_tpu_torch.evaluation.roofline`),
@@ -385,6 +391,46 @@ def hold_refine(P, Q, scores, valid, r9, t3, params, where):
           f"; R, t within {err:.3g} of the plain refine, {flips} inlier flips, bit for bit "
           f"across two calls and for the last pair alone", flush=True)
     return err, R, t
+
+
+def hold_pool_rank(anchors, nbr_s, nbr_idx, cand, params, n_nodes, where):
+    """The pool's ranking kernel (row 13) against its plain version on the
+    same candidates, with and without dedup: triples, scores and valid bit
+    for bit, one launch a call, two calls the same bits; the duplicate
+    count the plain mask's sum a pair. Returns the kernel's plan."""
+    import torch
+
+    from saccot_tpu_torch.kernels import _build
+    from saccot_tpu_torch.kernels import triangles as ktri
+
+    args = (anchors, nbr_s, nbr_idx, cand, params.max_hypotheses)
+    for dedup in (True, False):
+        before = _build.launches()["pool_rank"]
+        got = ktri.pool_rank(*args, dedup, n_nodes)
+        check(_build.launches()["pool_rank"] == before + 1,
+              f"pool_rank at {where}: not one launch a call")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(got, ktri.pool_rank_reference(*args, dedup, n_nodes))),
+              f"pool_rank at {where} (dedup={dedup}) differs from its plain version")
+        check(all(torch.equal(x, y) for x, y in zip(got, ktri.pool_rank(*args, dedup, n_nodes))),
+              f"pool_rank at {where} (dedup={dedup}): two calls differ")
+    b1, b2 = ktri.pair_slots(nbr_idx.shape[2], nbr_idx.device)
+    dup = ktri.mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2,
+                                            n_nodes).sum(dim=(1, 2))
+    check(torch.equal(ktri.DUPLICATES_MARKED[-1], dup),
+          f"pool_rank at {where}: the duplicate count is not the plain mask's sum")
+    plan = ktri.pool_rank_plan(anchors.shape[1], nbr_idx.shape[2], params.max_hypotheses)
+    valid = got[2].sum(dim=1)
+    print(f"  pool_rank at {where}: {plan}; bit for bit the plain version with and without "
+          f"dedup, two calls alike; duplicates a pair {int(dup.min())}..{int(dup.max())}, "
+          f"valid entries {int(valid.min())}..{int(valid.max())} of {params.max_hypotheses}",
+          flush=True)
+    return plan
+
+
+def tiled(x, batch):
+    """x [b, ...] repeated along its first axis to `batch` rows."""
+    return x.repeat((-(-batch // x.shape[0]),) + (1,) * (x.dim() - 1))[:batch].contiguous()
 
 
 def hold_tri_skips(P, Q, params, keep, where):
@@ -1653,6 +1699,10 @@ def phase15(dev, rows, fast, exact, P, Q, T_gt, results):
                 n = launched[counters[s]]
                 check((n == 0) if s == plain else (n > 0),
                       f"{where}: {counters[s]} launched {n} times")
+            # The exact pool ranks by its kernel, once a call, unless plain.
+            want_rank = 0 if plain == "pool" or params.per_anchor_candidates else 1
+            check(launched["pool_rank"] == want_rank,
+                  f"{where}: pool_rank launched {launched['pool_rank']} times")
             # The refine follows `impl` ("kernel" in every mix).
             check(launched["refine"] == 2 * params.refine_iters + 1,
                   f"{where}: the refine launched {launched['refine']} passes")
@@ -1980,6 +2030,23 @@ def main():
           f"bit in blocks of {threads}", flush=True)
     hold_score(*ksolve.solve3_reference(P3, Q3, pool3.triples), P3, Q3, tdm.inlier_tau,
                "the 3DMatch point")
+    # The pool's ranking (row 13) on the fused kernel's candidates at this
+    # point, and on them tiled to threedmatch.sweep's call of 1,623 pairs,
+    # where it is timed.
+    rank3 = (anc3.contiguous(), *ktri.anchor_neighbors(
+        P3, Q3, anc3, tdm.neighbors_per_anchor, tdm.compat_tau, tdm.min_separation,
+        emit_candidates=True))
+    hold_pool_rank(*rank3, tdm, 2048, "the 3DMatch point")
+    rank3 = tuple(tiled(x, 1623) for x in rank3)
+    plan3 = hold_pool_rank(*rank3, tdm, 2048, "threedmatch.sweep's call (1,623 pairs, tiled)")
+    rank3 += (tdm.max_hypotheses, True, 2048)
+    row("pool_rank", "saccot_tpu_torch/csrc/pool_rank.cu",
+        "none: the exact pool's dedup and top-K (XLA in saccot_tpu/engine/triangles.py)", 0.0,
+        time_ms(lambda: ktri.pool_rank(*rank3)),
+        time_ms(lambda: ktri.pool_rank_reference(*rank3), reps=5), "pool_rank",
+        roofline.pool_rank_model(tdm.num_anchors, tdm.neighbors_per_anchor,
+                                 tdm.max_hypotheses, 1623),
+        device_ms=kernel_device_ms(lambda: ktri.pool_rank(*rank3)), plan=str(plan3))
     print(f"phase 5 ok: 3DMatch recall kernels {rec_k:.4f}, plain {rec_p:.4f}", flush=True)
 
     # -- phase 6: the large-N kernels vs plain versions at the kitti shapes --
@@ -2072,6 +2139,21 @@ def main():
         roofline.anchor_rows_model(50000, A, B, 2),
         device_ms=kernel_device_ms(lambda: ktri.anchor_neighbors_stream(*sargs)),
         plan=f"{plan_str(splan)}, {splan.blocks} blocks")
+
+    # The pool's ranking (row 13) on the streamed selections' candidates, and
+    # on them tiled to kitti.sweep's call of 64 pairs, where it is timed.
+    rankk = (anchors.contiguous(), got[0], got[1], ktri.candidates_from_points(
+        got[0], got[1], PK, QK, tau, sep, ktri.pair_slots(B, dev), anchors))
+    hold_pool_rank(*rankk, kp, 50000, "kitti")
+    rankk = tuple(tiled(x, 64) for x in rankk)
+    plank = hold_pool_rank(*rankk, kp, 50000, "kitti.sweep's call (64 pairs, tiled)")
+    rankk += (kp.max_hypotheses, True, 50000)
+    row("pool_rank_large_n", "saccot_tpu_torch/csrc/pool_rank.cu",
+        "none: the exact pool's dedup and top-K (XLA in saccot_tpu/engine/triangles.py)", 0.0,
+        time_ms(lambda: ktri.pool_rank(*rankk)),
+        time_ms(lambda: ktri.pool_rank_reference(*rankk), reps=5), "pool_rank",
+        roofline.pool_rank_model(A, B, kp.max_hypotheses, 64),
+        device_ms=kernel_device_ms(lambda: ktri.pool_rank(*rankk)), plan=str(plank))
 
     # The card's launch floor: an empty kernel, one thread, read as every
     # kernel's device ms is.

@@ -15,7 +15,8 @@ kernel route (`impl="pallas"`):
      candidates, then a global top-K over the A*T of them (the identity when
      A*T <= K);
      exact config: cross-anchor duplicates invalidated, canonical (lo, mid,
-     hi) triples, then an exact global top-K.
+     hi) triples, then an exact global top-K, one launch of
+     `kernels.triangles.pool_rank` on a card.
 
 Every top-k here is a stable descending sort, `lax.top_k`'s order. Where the
 JAX package asks for `approx_max_k` (approx_topk=True with A*T > K) the port
@@ -148,15 +149,14 @@ def triangle_pool_from_points(
                 nbr_s, nbr_idx, P, Q, T, params.compat_tau, params.min_separation)
             return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
                                         params)
-        return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params)
+        return _pool_from_neighbors(anchors, nbr_s, nbr_idx, P, Q, params, plain=plain)
     fn = tri_kernels.anchor_neighbors_reference if plain else tri_kernels.anchor_neighbors
     if params.per_anchor_candidates > 0:
         cand = fn(*args, **kw, top_t=T)[2:]
         return _pool_from_preranked(anchors, *_gather_anchors(cand, shard, anchor_group),
                                     params)
     nbr_s, nbr_idx, cand = fn(*args, **kw, emit_candidates=True)
-    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N,
-                                     tri_kernels.pair_slots(B, P.device))
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, N, plain)
 
 
 def _gather_anchors(arrs, shard: bool, group):
@@ -172,28 +172,14 @@ def _rank_neighbor_candidates(
     cand: torch.Tensor,      # [batch, A, Pairs] candidate scores, -1 = invalid
     params: SacCotParams,
     n_nodes: int,
-    slots,                   # kernels.triangles.pair_slots(B, device)
+    plain: bool,
 ) -> TrianglePool:
     """(exact dedup, canonical triples) -> global top-K of the candidates
-    (anchor, b1, b2) over the pair slots."""
-    b1, b2 = slots
-    j, k = nbr_idx[:, :, b1], nbr_idx[:, :, b2]
-    if params.dedup_triangles:
-        dup = _mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2, n_nodes)
-        cand = torch.where(dup, -1.0, cand)
-    batch = cand.shape[0]
-    score = cand.reshape(batch, -1)
-    fi, fj, fk = (x.reshape(batch, -1) for x in (anchors[:, :, None].expand_as(j), j, k))
-    if not params.dedup_triangles:
-        # Solve and scoring are permutation-invariant: keep (anchor, j, k).
-        return _select_topk((fi, fj, fk), score, params)
-    a0 = torch.minimum(fi, fj)
-    b0 = torch.maximum(fi, fj)
-    lo2 = torch.minimum(b0, fk)
-    hi = torch.maximum(b0, fk)
-    lo = torch.minimum(a0, lo2)
-    mid = torch.maximum(a0, lo2)
-    return _select_topk((lo, mid, hi), score, params)
+    (anchor, b1, b2) over the pair slots: `kernels.triangles.pool_rank`, or
+    its plain version."""
+    fn = tri_kernels.pool_rank_reference if plain else tri_kernels.pool_rank
+    return TrianglePool(*fn(anchors, nbr_s, nbr_idx, cand, params.max_hypotheses,
+                            params.dedup_triangles, n_nodes))
 
 
 def _pool_from_neighbors(
@@ -204,9 +190,10 @@ def _pool_from_neighbors(
     Q: Optional[torch.Tensor],
     params: SacCotParams,
     S: Optional[torch.Tensor] = None,
+    plain: bool = False,
 ) -> TrianglePool:
     """Candidate triangles, then ranked: the exact config above MAX_N_FUSED,
-    and `triangle_pool`.
+    and `triangle_pool`; `plain` ranks them by the plain version.
 
     s_jk is scored from the neighbours' coordinates when P and Q are given
     (direct differences; the JAX version takes `jnp.linalg.norm`, so a score
@@ -228,44 +215,7 @@ def _pool_from_neighbors(
         s_jk = torch.gather(S.reshape(batch, -1), 1,
                             (j * n_nodes + k).reshape(batch, -1)).reshape(j.shape)
         cand = tri_kernels.candidate_scores(nbr_s, nbr_idx, slots, s_jk, anchors)
-    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, n_nodes, slots)
-
-
-def _mark_cross_anchor_duplicates(
-    anchors: torch.Tensor,    # [batch, A] anchor node ids (distinct)
-    nbr_idx: torch.Tensor,    # [batch, A, B] neighbour node ids per anchor
-    nbr_valid: torch.Tensor,  # [batch, A, B] bool: selection has positive score
-    b1: torch.Tensor,         # [Pairs] upper-triangle template
-    b2: torch.Tensor,
-    n_nodes: int,
-) -> torch.Tensor:
-    """Exact dedup mask [batch, A, Pairs].
-
-    A triangle enters the candidate list once per vertex that is an anchor
-    holding the other two among its valid top-B neighbours; the copy at the
-    smallest anchor slot is kept. A candidate (a, b1, b2) is a duplicate iff
-    one of its neighbour vertices is an anchor x at a smaller slot whose
-    valid row holds both anchors[a] and the other neighbour. The JAX version
-    finds slot(a, b) with one-hot contractions (no TPU gathers); here an
-    inverse node -> anchor-slot map is gathered directly.
-    """
-    batch, A, B = nbr_idx.shape
-    slot_of = torch.full((batch, n_nodes), -1, dtype=torch.int64, device=anchors.device)
-    slot_of.scatter_(1, anchors, torch.arange(A, device=anchors.device).expand(batch, A))
-    x = torch.gather(slot_of, 1, nbr_idx.reshape(batch, A * B)).reshape(batch, A, B)
-    match = (x >= 0) & nbr_valid                       # neighbour (a, b) is anchor slot x
-    rows = x.clamp_min(0).reshape(batch, A * B, 1).expand(batch, A * B, B)
-    R3 = torch.gather(nbr_idx, 1, rows).reshape(batch, A, B, B)    # row of slot x
-    V3 = torch.gather(nbr_valid, 1, rows).reshape(batch, A, B, B) & match[..., None]
-    # anchors[a] is a valid neighbour of x, and x comes first.
-    holds_a = ((R3 == anchors[:, :, None, None]) & V3).any(dim=-1)
-    earlier = x < torch.arange(A, device=x.device)[None, :, None]
-    gate = match & earlier & holds_a                                # [batch, A, B]
-    # in_row[a, b, t]: nbr_idx[a, t] is a valid neighbour of slot(a, b)'s anchor.
-    in_row = ((R3[..., :, None] == nbr_idx[:, :, None, None, :])
-              & V3[..., :, None]).any(dim=-2)                       # [batch, A, B, T]
-    return ((gate[:, :, b1] & in_row[:, :, b1, b2])
-            | (gate[:, :, b2] & in_row[:, :, b2, b1]))
+    return _rank_neighbor_candidates(anchors, nbr_s, nbr_idx, cand, params, n_nodes, plain)
 
 
 def _pool_from_preranked(
@@ -283,20 +233,6 @@ def _pool_from_preranked(
     j = cand_j.reshape(batch, A * T)
     k = cand_k.reshape(batch, A * T)
     if params.max_hypotheses >= A * T:
-        return _pool_from_selected((i, j, k), flat_s, params)
-    return _select_topk((i, j, k), flat_s, params)
-
-
-def _pool_from_selected(tri_cols, top_s: torch.Tensor, params: SacCotParams) -> TrianglePool:
-    K = params.max_hypotheses
-    triples = torch.stack(tri_cols, dim=-1).to(torch.int64)
-    pad = K - top_s.shape[1]
-    if pad > 0:  # pad to the static budget
-        triples = torch.cat([triples, triples.new_zeros((triples.shape[0], pad, 3))], dim=1)
-        top_s = torch.cat([top_s, top_s.new_full((top_s.shape[0], pad), -1.0)], dim=1)
-    return TrianglePool(triples=triples, scores=top_s, valid=top_s > 0)
-
-
-def _select_topk(tri_cols, ss: torch.Tensor, params: SacCotParams) -> TrianglePool:
-    top_s, top_i = topk_stable(ss, min(params.max_hypotheses, ss.shape[1]))
-    return _pool_from_selected([torch.gather(c, 1, top_i) for c in tri_cols], top_s, params)
+        return TrianglePool(*tri_kernels.pool_from_selected((i, j, k), flat_s,
+                                                            params.max_hypotheses))
+    return TrianglePool(*tri_kernels.select_topk((i, j, k), flat_s, params.max_hypotheses))

@@ -152,6 +152,16 @@ def pool_model(n: int, a: int, b: int, t: int = 4, batch: int = 1) -> Model:
     return _model(rows["flops"] + (PAIR_OPS + 3) * cands, rows["bytes"] + 4 * cands)
 
 
+def pool_rank_model(a: int, b: int, k: int, batch: int = 1) -> Model:
+    """The exact pool's ranking (row 13): dedup, canonical triples and the
+    top-K of a pair's A B(B-1)/2 candidates. Integer compares, no FP32
+    arithmetic; the candidate scores, the neighbours' scores and ids and the
+    anchors read once, K triples, scores and flags and the duplicate count
+    written."""
+    cands = a * b * (b - 1) // 2
+    return _model(0, batch * (4 * cands + 12 * a * b + 8 * a + 29 * k + 8))
+
+
 def solve_model(n: int, k: int, batch: int = 1) -> Model:
     """The 3-point solves (rows 3, 8): SOLVE_OPS a hypothesis; the triples
     read, the point rows they name (at most 3K of n), r9 and t3 written."""

@@ -9,7 +9,7 @@ a hash of the sources, so an edited source triggers a rebuild and an
 unchanged one is reused.
 
 Every entry point returns `cudaGetLastError()` right after its launch;
-`check` raises on a non-zero code. `LAUNCHES` holds fifteen plain integers,
+`check` raises on a non-zero code. `LAUNCHES` holds sixteen plain integers,
 one per kernel (three for the fused anchor kernel: its neighbour, candidate
 and top-T modes; two for the two-sided degree kernel: its own route and the
 direct-form one; two for the timing variants of `compat_ops.cu`: one per
@@ -51,6 +51,7 @@ LAUNCHES: Dict[str, int] = {
     "compat_ops_tri": 0,
     "refine": 0,                  # a pass of the refine (csrc/refine.cu)
     "refine_fit": 0,              # the sharded refine's fit, after its all-reduce
+    "pool_rank": 0,               # the exact pool's dedup and top-K (csrc/pool_rank.cu)
 }
 
 _P = ctypes.c_void_p
@@ -69,6 +70,7 @@ _SIGNATURES = {
     "saccot_compat_ops": [_P] * 4 + [_I] * 5 + [_F] * 5 + [_I, _I, _P, _P],
     "saccot_refine_pass": [_I, _I] + [_P] * 12 + [_I, _I, _I, _F, _P],
     "saccot_refine_fit": [_P] * 6 + [_I, _P],
+    "saccot_pool_rank": [_P] * 8 + [_I] * 7 + [_L, _P],
     "saccot_empty": [_P],
 }
 

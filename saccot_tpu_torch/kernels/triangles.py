@@ -18,6 +18,10 @@ Three TPU kernels of `saccot_tpu/kernels/triangles.py` are replaced:
     the top-T mode's second half, on the streamed selections; one warp per
     anchor, `candidate_plan` of them a block, reading the neighbours'
     coordinates from P and Q by node id).
+One kernel replaces XLA operations of the JAX package rather than a TPU
+kernel: `csrc/pool_rank.cu` (`pool_rank`: the exact pool's cross-anchor
+dedup, canonical triples and global top-K, one block a pair; its plain
+version, `pool_rank_reference`, is the torch composition it replaced).
 Selection order is `lax.top_k`'s: score descending, lowest index first. The
 plain versions get it from a stable descending sort (`torch.topk` does not
 promise it).
@@ -26,7 +30,8 @@ promise it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from collections import deque
+from typing import Deque, Optional
 
 import numpy as np
 import torch
@@ -189,6 +194,70 @@ def candidate_plan(batch: int, A: int, B: int) -> CandidatePlan:
     if not 1 <= B <= MAX_NEIGHBORS:
         raise ValueError(f"the candidate kernel takes 1 <= B <= {MAX_NEIGHBORS} (got B={B})")
     return make_candidate_plan(batch, A, B, CANDIDATE_WARPS)
+
+
+# The ranking kernel (csrc/pool_rank.cu) runs one block of POOL_RANK_THREADS
+# threads a pair. Its dynamic shared memory (`pool_rank_smem`, the sum of
+# the kernel's `layout`) holds the kept entries (8 bytes each, a power of two
+# of them), the anchors as given and sorted, words per anchor and per
+# selection, the neighbour ids as int32 (all, in rows of an odd stride, and
+# the valid ones, in rows of a multiple of 4), the pair table and a
+# histogram; and, where that still fits in an H100 block's
+# POOL_RANK_SMEM_LIMIT bytes, every candidate's 4-byte key, which each pass
+# of the selection then reads from shared memory instead of recomputing it
+# from the scores in L2 (resident at the 3DMatch and 3DLoMatch points,
+# 30,720 candidates; not at kitti's 61,440).
+POOL_RANK_SMEM_LIMIT = 232448
+POOL_RANK_THREADS = 1024
+POOL_RANK_BINS = 256
+POOL_RANK_WORDS = 8 + POOL_RANK_THREADS // 32   # the block's scalars, then one a warp
+MAX_POOL_CANDIDATES = 2 ** 30
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolRankPlan:
+    """Launch of the ranking kernel: candidate keys `resident` in shared
+    memory or not, the sort's width `k_pow2` and a block's dynamic shared
+    memory in bytes."""
+    resident: bool
+    k_pow2: int
+    smem_bytes: int
+
+
+def pool_rank_smem(A: int, B: int, k_pow2: int, resident: bool) -> int:
+    """Dynamic shared memory of a block of the ranking kernel, in bytes (the
+    regions of csrc/pool_rank.cu `layout`, each rounded up to 8 bytes, the
+    valid ids' and the keys' to 16)."""
+    def up(n, m=8):
+        return -(-n // m) * m
+
+    n_pairs = B * (B - 1) // 2
+    head = (8 * k_pow2 + 4 * up(4 * A) + up(4 * A * B) + up(4 * A * (B | 1)) + up(2 * n_pairs)
+            + 4 * POOL_RANK_BINS + 4 * POOL_RANK_WORDS)
+    valid_ids = 4 * A * up(B, 4)
+    return up(up(head, 16) + valid_ids, 16) + (4 * A * n_pairs if resident else 0)
+
+
+def pool_rank_plan(A: int, B: int, K: int) -> PoolRankPlan:
+    """The ranking kernel's plan for A anchors of B selections (1 <= B <=
+    MAX_NEIGHBORS) and a budget of K >= 1: the keys resident where the block
+    then fits in POOL_RANK_SMEM_LIMIT bytes, else read again each pass;
+    raises where neither fits."""
+    if not 1 <= B <= MAX_NEIGHBORS:
+        raise ValueError(f"the ranking kernel takes 1 <= B <= {MAX_NEIGHBORS} (got B={B})")
+    if K < 1:
+        raise ValueError(f"max_hypotheses must be at least 1, got {K}")
+    n_cand = A * (B * (B - 1) // 2)
+    if A < 1 or n_cand > MAX_POOL_CANDIDATES:
+        raise ValueError(f"the ranking kernel takes 1 <= A and at most {MAX_POOL_CANDIDATES} "
+                         f"candidates a pair (got A={A}, {n_cand})")
+    k_pow2 = 1 << (max(1, min(K, n_cand)) - 1).bit_length()
+    for resident in (True, False):
+        smem = pool_rank_smem(A, B, k_pow2, resident)
+        if smem <= POOL_RANK_SMEM_LIMIT:
+            return PoolRankPlan(resident=resident, k_pow2=k_pow2, smem_bytes=smem)
+    raise ValueError(f"the ranking kernel needs {smem} bytes of shared memory at A={A}, B={B}, "
+                     f"K={K} (at most {POOL_RANK_SMEM_LIMIT})")
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -503,3 +572,165 @@ def anchor_neighbors(
     if emit_candidates:
         return nbr_s, nbr_idx, cand
     return nbr_s, nbr_idx
+
+
+# A ranking launch with dedup keeps each pair's count of candidates it
+# invalidated as duplicates ([batch] int64 on the card, never waited on): the
+# last DUPLICATES_MARKED_KEPT such launches, most recent last. A launch
+# without dedup keeps nothing.
+DUPLICATES_MARKED_KEPT = 64
+DUPLICATES_MARKED: Deque[torch.Tensor] = deque(maxlen=DUPLICATES_MARKED_KEPT)
+
+
+def mark_cross_anchor_duplicates(
+    anchors: torch.Tensor,    # [batch, A] anchor node ids (distinct)
+    nbr_idx: torch.Tensor,    # [batch, A, B] neighbour node ids per anchor
+    nbr_valid: torch.Tensor,  # [batch, A, B] bool: selection has positive score
+    b1: torch.Tensor,         # [Pairs] upper-triangle template
+    b2: torch.Tensor,
+    n_nodes: int,
+) -> torch.Tensor:
+    """Exact dedup mask [batch, A, Pairs].
+
+    A triangle enters the candidate list once per vertex that is an anchor
+    holding the other two among its valid top-B neighbours; the copy at the
+    smallest anchor slot is kept. A candidate (a, b1, b2) is a duplicate iff
+    one of its neighbour vertices is an anchor x at a smaller slot whose
+    valid row holds both anchors[a] and the other neighbour. The JAX version
+    finds slot(a, b) with one-hot contractions (no TPU gathers); here an
+    inverse node -> anchor-slot map is gathered directly.
+    """
+    batch, A, B = nbr_idx.shape
+    slot_of = torch.full((batch, n_nodes), -1, dtype=torch.int64, device=anchors.device)
+    slot_of.scatter_(1, anchors, torch.arange(A, device=anchors.device).expand(batch, A))
+    x = torch.gather(slot_of, 1, nbr_idx.reshape(batch, A * B)).reshape(batch, A, B)
+    match = (x >= 0) & nbr_valid                       # neighbour (a, b) is anchor slot x
+    rows = x.clamp_min(0).reshape(batch, A * B, 1).expand(batch, A * B, B)
+    R3 = torch.gather(nbr_idx, 1, rows).reshape(batch, A, B, B)    # row of slot x
+    V3 = torch.gather(nbr_valid, 1, rows).reshape(batch, A, B, B) & match[..., None]
+    # anchors[a] is a valid neighbour of x, and x comes first.
+    holds_a = ((R3 == anchors[:, :, None, None]) & V3).any(dim=-1)
+    earlier = x < torch.arange(A, device=x.device)[None, :, None]
+    gate = match & earlier & holds_a                                # [batch, A, B]
+    # in_row[a, b, t]: nbr_idx[a, t] is a valid neighbour of slot(a, b)'s anchor.
+    in_row = ((R3[..., :, None] == nbr_idx[:, :, None, None, :])
+              & V3[..., :, None]).any(dim=-2)                       # [batch, A, B, T]
+    return ((gate[:, :, b1] & in_row[:, :, b1, b2])
+            | (gate[:, :, b2] & in_row[:, :, b2, b1]))
+
+
+def pool_from_selected(tri_cols, top_s: torch.Tensor, max_hypotheses: int):
+    """(triples [batch, K, 3] int64, scores [batch, K], valid [batch, K]) of
+    the selected triples' columns and scores, padded to the budget K with
+    (0, 0, 0) and -1."""
+    triples = torch.stack(tri_cols, dim=-1).to(torch.int64)
+    pad = max_hypotheses - top_s.shape[1]
+    if pad > 0:  # pad to the static budget
+        triples = torch.cat([triples, triples.new_zeros((triples.shape[0], pad, 3))], dim=1)
+        top_s = torch.cat([top_s, top_s.new_full((top_s.shape[0], pad), -1.0)], dim=1)
+    return triples, top_s, top_s > 0
+
+
+def select_topk(tri_cols, ss: torch.Tensor, max_hypotheses: int):
+    """`pool_from_selected` of the top K of the scores ss [batch, n] (a
+    stable descending sort) and their triples' columns [batch, n]."""
+    top_s, top_i = topk_stable(ss, min(max_hypotheses, ss.shape[1]))
+    return pool_from_selected([torch.gather(c, 1, top_i) for c in tri_cols], top_s,
+                              max_hypotheses)
+
+
+def pool_rank_reference(
+    anchors: torch.Tensor,
+    nbr_s: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    cand: torch.Tensor,
+    max_hypotheses: int,
+    dedup: bool,
+    n_nodes: int,
+):
+    """Plain version of `pool_rank` (same arguments and returns)."""
+    batch, A, B = nbr_idx.shape
+    b1, b2 = pair_slots(B, nbr_idx.device)
+    j, k = nbr_idx[:, :, b1], nbr_idx[:, :, b2]
+    if dedup:
+        dup = mark_cross_anchor_duplicates(anchors, nbr_idx, nbr_s > 0, b1, b2, n_nodes)
+        cand = torch.where(dup, -1.0, cand)
+    score = cand.reshape(batch, -1)
+    fi, fj, fk = (x.reshape(batch, -1) for x in (anchors[:, :, None].expand_as(j), j, k))
+    if not dedup:
+        # Solve and scoring are permutation-invariant: keep (anchor, j, k).
+        return select_topk((fi, fj, fk), score, max_hypotheses)
+    a0 = torch.minimum(fi, fj)
+    b0 = torch.maximum(fi, fj)
+    lo2 = torch.minimum(b0, fk)
+    hi = torch.maximum(b0, fk)
+    lo = torch.minimum(a0, lo2)
+    mid = torch.maximum(a0, lo2)
+    return select_topk((lo, mid, hi), score, max_hypotheses)
+
+
+def pool_rank(
+    anchors: torch.Tensor,
+    nbr_s: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    cand: torch.Tensor,
+    max_hypotheses: int,
+    dedup: bool,
+    n_nodes: int,
+):
+    """The exact pool from its candidates: with `dedup` the cross-anchor
+    duplicates invalidated (`mark_cross_anchor_duplicates`) and the triples
+    made canonical (lo, mid, hi), then the global top-K (K =
+    `max_hypotheses`) in a stable descending order of the scores.
+
+    anchors [batch, A] int64 (distinct node ids), nbr_s [batch, A, B]
+    float32 (> 0 marks a valid selection), nbr_idx [batch, A, B] int64 node
+    ids in [0, n_nodes) (the kernel takes n_nodes <= 2^31 - 1 and keeps the
+    ids as int32), cand [batch, A, B(B-1)/2] float32 candidate scores
+    in `pair_slots` order (-1 invalid). Returns triples [batch, K, 3] int64,
+    scores [batch, K] float32 and valid [batch, K] bool (scores > 0), padded
+    with (0, 0, 0) / -1 past the A B(B-1)/2 candidates: on CUDA tensors one
+    launch of `csrc/pool_rank.cu`, which gives the plain version's bits and
+    keeps its duplicate counts in `DUPLICATES_MARKED`; on CPU tensors the
+    plain version.
+    """
+    batch, A, B = nbr_idx.shape
+    shapes = {"anchors": (anchors, torch.int64, (batch, A)),
+              "nbr_s": (nbr_s, torch.float32, (batch, A, B)),
+              "nbr_idx": (nbr_idx, torch.int64, (batch, A, B)),
+              "cand": (cand, torch.float32, (batch, A, B * (B - 1) // 2))}
+    for name, (x, dtype, shape) in shapes.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if x.device != cand.device:
+            raise ValueError(f"{name} on {x.device}, cand on {cand.device}")
+    if max_hypotheses < 1:
+        raise ValueError(f"max_hypotheses must be at least 1, got {max_hypotheses}")
+    if not cand.is_cuda:
+        return pool_rank_reference(anchors, nbr_s, nbr_idx, cand, max_hypotheses, dedup,
+                                   n_nodes)
+    if n_nodes > 2 ** 31 - 1:
+        raise ValueError(f"the ranking kernel keeps node ids as int32, n_nodes <= 2^31 - 1 "
+                         f"(got {n_nodes})")
+    plan = pool_rank_plan(A, B, max_hypotheses)
+    dev, K = cand.device, max_hypotheses
+    anchors, nbr_s, nbr_idx, cand = (x.contiguous() for x in (anchors, nbr_s, nbr_idx, cand))
+    triples = torch.empty((batch, K, 3), dtype=torch.int64, device=dev)
+    scores = torch.empty((batch, K), dtype=torch.float32, device=dev)
+    valid = torch.empty((batch, K), dtype=torch.bool, device=dev)
+    dups = torch.empty(batch, dtype=torch.int64, device=dev) if dedup else None
+    if batch:
+        lib = _build.library()
+        rc = lib.saccot_pool_rank(
+            ptr(anchors), ptr(nbr_s), ptr(nbr_idx), ptr(cand), ptr(triples), ptr(scores),
+            ptr(valid), ptr(dups), batch, A, B, K, plan.k_pow2, int(dedup), int(plan.resident),
+            plan.smem_bytes, stream_of(scores),
+        )
+        _build.check(rc, "pool_rank")
+        _build.LAUNCHES["pool_rank"] += 1
+        debug.check_kernel("pool_rank", scores)
+        if dups is not None:
+            DUPLICATES_MARKED.append(dups)
+    return triples, scores, valid

@@ -187,7 +187,7 @@ def test_every_kernel_launch_is_checked():
             if re.search(r"_build\.LAUNCHES\[.*\] \+= 1", line):
                 sites += 1
                 assert "debug.check_kernel(" in lines[i + 1], f"{f.name}:{i + 1}"
-    assert sites == 10
+    assert sites == 11
 
 
 def test_stage_timer_accumulates_as_the_jax_timer():

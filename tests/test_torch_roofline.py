@@ -23,7 +23,9 @@ FAST = dataclasses.replace(BENCH, dedup_triangles=False, approx_topk=True,
 # point (128 x N=1,000, A=256, B=12, T=4, K=1,024; row 4 also at kitti),
 # 5-8 at kitti (2 x N=50,000, A=512, B=16, T=4, K=2,048), 9 the SP slice
 # (32 x 1,024 rows against 2,048), 10 one ring step (2 x 25,000 x 25,000),
-# 11 one pair at N=50,000 in both forms.
+# 11 one pair at N=50,000 in both forms, 13 the pool's ranking at the
+# threedmatch.sweep (1,623 x A=256, B=16, K=2,048) and kitti.sweep (64 x
+# A=512) calls.
 ROWS = {
     "1 compat_degrees": (rl.compat_degrees_model(1000, 128), "0.0784", "operations"),
     "2 anchor_topb candidates": (rl.pool_model(1000, 256, 12, 0, 128), "0.0429", "operations"),
@@ -41,6 +43,8 @@ ROWS = {
     "11 compat_ops tri": (rl.compat_ops_model("full", "tri", 50000), "1.4573", "operations"),
     "11 compat_ops two-sided": (rl.compat_ops_model("full", "two_sided", 50000), "2.8397",
                                 "operations"),
+    "13 pool_rank": (rl.pool_rank_model(256, 16, 2048, 1623), "0.1131", "bytes"),
+    "13 pool_rank kitti": (rl.pool_rank_model(512, 16, 2048, 64), "0.0078", "bytes"),
 }
 
 

@@ -118,7 +118,7 @@ def test_dedup_mask_equals_jax(case):
     on the same selections."""
     nbr_s, nbr_idx = _torch_neighbors(case)
     b1, b2 = np.triu_indices(B, k=1)
-    got = ttri._mark_cross_anchor_duplicates(
+    got = ktri.mark_cross_anchor_duplicates(
         torch.from_numpy(case["anchors"]), torch.from_numpy(nbr_idx),
         torch.from_numpy(nbr_s > 0), torch.from_numpy(b1), torch.from_numpy(b2), N).numpy()
     assert got.any()
